@@ -1,0 +1,17 @@
+"""tinyfaces_tpu_torch — the PyTorch/CUDA port of tinyfaces_tpu for NVIDIA
+Hopper (H100).
+
+The JAX package `tinyfaces_tpu` is the reference; this package mirrors its
+layout and names so each module's counterpart is easy to find:
+
+  ops/     dense IoU, GT assignment (CUDA kernel + plain twin), sampling
+  models/  ResNet backbone + 25-template detector heads (torch.nn)
+  data/    templates, device-side target building, the batch loader
+  utils/   weight bridge to and from the JAX trees, CUDA build helper
+  csrc/    hand-written CUDA kernels, built with nvcc at first use
+
+It imports torch and never jax. From the JAX package it uses only the
+framework-free `tinyfaces_tpu.config` and `tinyfaces_tpu.utils.profiling`.
+"""
+
+__version__ = "0.1.0"

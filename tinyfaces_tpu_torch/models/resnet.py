@@ -1,0 +1,119 @@
+"""ResNet backbone truncated after layer3, as torch.nn modules.
+
+Port of tinyfaces_tpu/models/resnet.py: torchvision-v1.5 bottlenecks (stride
+on the 3x3), explicit padding, and the 3x3/2 max pool with pad 1 whose pad
+is -inf. Internally NCHW; the detector converts at its boundary.
+
+Module names follow the reference torch model (conv1/bn1, layer{1,2,3}.{i}
+with conv1..3/bn1..3 and downsample.{0,1}) so reference checkpoints and the
+JAX weight bridge (utils/convert.py) map by name.
+
+BatchNorm follows flax, not nn.BatchNorm2d: the running variance is updated
+with the *biased* batch variance (torch uses the unbiased one), with
+momentum 0.1 in torch's convention (= flax momentum 0.9).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+RESNET101_STAGES: Tuple[int, ...] = (3, 4, 23)
+RESNET50_STAGES: Tuple[int, ...] = (3, 4, 6)
+ARCH_STAGES: dict = {
+    "resnet101": RESNET101_STAGES,
+    "resnet50": RESNET50_STAGES,
+}
+
+
+class BatchNorm2d(nn.Module):
+    """Batch norm with flax's statistics update (see module docstring).
+    Same parameter and buffer names as nn.BatchNorm2d, without
+    num_batches_tracked."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        # Normalize with the biased batch statistics, then update the running
+        # statistics with the biased variance (flax), not the unbiased one.
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        return y
+
+
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """3x3/2 max pool with pad 1; F.max_pool2d pads with -inf."""
+    return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+
+
+class Bottleneck(nn.Module):
+    """torchvision-v1.5 bottleneck: 1x1 -> 3x3(stride) -> 1x1(4x), residual."""
+
+    expansion = 4
+
+    def __init__(self, in_ch: int, width: int, stride: int = 1):
+        super().__init__()
+        out_ch = width * self.expansion
+        self.conv1 = nn.Conv2d(in_ch, width, 1, bias=False)
+        self.bn1 = BatchNorm2d(width)
+        self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1, bias=False)
+        self.bn2 = BatchNorm2d(width)
+        self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False)
+        self.bn3 = BatchNorm2d(out_ch)
+        self.downsample = None
+        if stride != 1 or in_ch != out_ch:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
+                BatchNorm2d(out_ch),
+            )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x if self.downsample is None else self.downsample(x)
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return F.relu(y + identity)
+
+
+class ResNetBackbone(nn.Module):
+    """Stem + layer1..layer3 on NCHW input; returns (res3, res4).
+
+    res3: stride 8, 512 channels. res4: stride 16, 1024 channels.
+    """
+
+    def __init__(self, stage_sizes: Sequence[int] = RESNET101_STAGES):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = BatchNorm2d(64)
+        in_ch = 64
+        for stage_idx, (n_blocks, width) in enumerate(zip(stage_sizes, (64, 128, 256)), start=1):
+            blocks = []
+            for block_idx in range(n_blocks):
+                stride = 2 if (stage_idx > 1 and block_idx == 0) else 1
+                blocks.append(Bottleneck(in_ch, width, stride))
+                in_ch = width * Bottleneck.expansion
+            setattr(self, f"layer{stage_idx}", nn.Sequential(*blocks))
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        x = max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
+        x = self.layer1(x)
+        res3 = self.layer2(x)
+        res4 = self.layer3(res3)
+        return res3, res4
