@@ -18,33 +18,59 @@ Phases, each printing its findings; any failure raises and exits non-zero:
      in-memory dataset; losses finite, parameters moved, the upsample
      frozen, and the kernel launched on every step;
   4. checkpoint: save, load into a fresh Trainer, one more step from each
-     gives identical losses.
+     gives identical losses;
+  5. inference against the CPU: full-depth ResNet-101 with seeded weights,
+     BN running statistics recalibrated on the smoke's images, regression
+     weights scaled to 1%, class weights scaled to a largest logit of 10 and
+     the class biases shifted so 3% of the cells that may fire clear
+     prob_thresh (set-up only: random weights give
+     eval outputs far from a trained model's); the fused pyramid for 2
+     images of ~192x256 at scales (-1, 0, 1), fp32 with TF32 off, on the
+     card and on the CPU: the same survivors wherever neighbouring
+     candidates' scores are more than 1e-4 apart, boxes within 1e-2 px,
+     scores within 1e-3;
+  6. full-width pyramid on the card: EvalConfig() defaults (scales -2..1,
+     K 1000, 750 out), the 768x1024 bucket at batch 32, bf16 and fp32:
+     img/s over timed batches after warm-up, batch-1 latency, peak memory
+     and a CUDA-event split (upload, resize, forward per level, decode,
+     NMS, copy back);
+  7. sweep and service: evaluate_model.run over 64 in-memory images of
+     mixed sizes (3 buckets) writes the result tree under
+     build/chip_smoke/, checked for count and format; DetectionService
+     answers 16 requests from 4 threads with detect_batch's results.
 
 The second-to-last line of output is the card's `nvidia-smi` name and power
-limit; before it, one JSON line describes each kernel; the last line is
+limit; before it, one JSON line describes each kernel, and before that one
+JSON line holds the inference numbers; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from tinyfaces_tpu.config import DetectorConfig, TrainConfig
+from tinyfaces_tpu.config import DetectorConfig, EvalConfig, TrainConfig
+from tinyfaces_tpu_torch import evaluate_model
 from tinyfaces_tpu_torch.data import load_templates
 from tinyfaces_tpu_torch.data.loader import PrefetchLoader
 from tinyfaces_tpu_torch.data.targets import normalize_images
+from tinyfaces_tpu_torch.evaluation import PyramidDetector
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
 from tinyfaces_tpu_torch.ops import assignment_kernel
 from tinyfaces_tpu_torch.ops.assignment import compose_targets, compute_pad_mask
 from tinyfaces_tpu_torch.ops.dense_overlap import compute_dense_overlap
+from tinyfaces_tpu_torch.serving import DetectionService
 from tinyfaces_tpu_torch.trainer import Trainer, load_checkpoint, save_checkpoint
 
 ROOT = Path(__file__).resolve().parent
@@ -262,6 +288,295 @@ def phase_checkpoint(trainer: Trainer, dataset: list, templates_np, dev: torch.d
           flush=True)
 
 
+PROB_LOGIT = math.log(EvalConfig().prob_thresh / (1 - EvalConfig().prob_thresh))
+
+
+def pink_images(rng, sizes) -> list:
+    """uint8 images with a 1/f amplitude spectrum: the scale-free statistics
+    of natural images, so every pyramid level looks alike to the network
+    (white noise would not: downscaling averages it away)."""
+    out = []
+    for h, w in sizes:
+        fy, fx = np.fft.fftfreq(h)[:, None], np.fft.rfftfreq(w)[None, :]
+        amp = 1.0 / np.maximum(np.hypot(fy, fx), 1.0 / max(h, w))
+        spec = amp[..., None] * (rng.normal(size=(h, fx.shape[1], 3))
+                                 + 1j * rng.normal(size=(h, fx.shape[1], 3)))
+        img = np.fft.irfft2(spec, s=(h, w), axes=(0, 1))
+        img = (img - img.mean()) / img.std() * 60.0 + 120.0
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+def calibrate(model: TinyFacesDetector, images: list, dev: torch.device, fraction: float = 0.03):
+    """Smoke set-up for seeded weights: BN running statistics become the
+    mean of the batch statistics over the images at levels 0.5, 1 and 2;
+    the regression weights shrink to 1% (so exp(tw) stays near 1); the
+    class weights scale so the largest logit is 10, a trained detector's
+    range (seeded heads reach ~50, where float32 differences between two
+    devices exceed the 1e-3 score tolerance); the class biases shift so
+    `fraction` of the cells that may fire clear prob_thresh. Returns the
+    per-level counts of such cells per image."""
+    h, w = min(im.shape[0] for im in images), min(im.shape[1] for im in images)
+    x = normalize_images(torch.from_numpy(np.stack([im[:h, :w] for im in images])).to(dev))
+    x = x.permute(0, 3, 1, 2)
+    levels = [F.interpolate(x, scale_factor=2.0**s, mode="bilinear", antialias=s < 0)
+              for s in (-1, 0, 1)]
+    bns = [m for m in model.modules() if m.__class__.__name__ == "BatchNorm2d"]
+    t = model.num_templates
+    heads = (model.score_res3, model.score_res4)
+    with torch.no_grad():
+        model.train()
+        for i, xl in enumerate(levels):
+            for bn in bns:
+                bn.momentum = 1.0 / (i + 1)  # running mean over the forwards
+            model(xl.permute(0, 2, 3, 1))
+        for bn in bns:
+            bn.momentum = 0.1
+        model.eval()
+        for head in heads:
+            head.weight[t:] *= 0.01
+        # the ids that may fire; the class biases are still 0, so the
+        # logits scale with the class weights
+        logits = [model(xl.permute(0, 2, 3, 1))[..., 4:12] for xl in levels]
+        gain = 10.0 / max(float(g.abs().max()) for g in logits)
+        for head in heads:
+            head.weight[:t] *= gain
+        logits = [g * gain for g in logits]
+        shift = PROB_LOGIT - torch.quantile(torch.cat([g.flatten() for g in logits]), 1 - fraction)
+        model.score_res3.bias[:t] += shift
+        return [int(((g + shift) > PROB_LOGIT).sum()) // len(images) for g in logits]
+
+
+def iou_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """(N, M) continuous-coordinate IoU (the NMS convention)."""
+    x1 = np.maximum(a[:, None, 0], b[None, :, 0])
+    y1 = np.maximum(a[:, None, 1], b[None, :, 1])
+    x2 = np.minimum(a[:, None, 2], b[None, :, 2])
+    y2 = np.minimum(a[:, None, 3], b[None, :, 3])
+    inter = np.clip(x2 - x1, 0, None) * np.clip(y2 - y1, 0, None)
+    area = lambda z: (z[:, 2] - z[:, 0]) * (z[:, 3] - z[:, 1])  # noqa: E731
+    union = area(a)[:, None] + area(b)[None, :] - inter
+    return np.where(union > 0, inter / np.where(union > 0, union, 1), 0.0)
+
+
+def match_detections(got: np.ndarray, want: np.ndarray, nms_thresh: float = 0.3,
+                     box_tol=1e-2, score_tol=1e-3, near=1e-4):
+    """Pairs the (N, 5) rows of got and want within box_tol px and
+    score_tol. A row left unpaired must come from a tie the two runs may
+    break apart: its score within `near` of another candidate's (an NMS or
+    top-K order), of the prob_thresh logit or of the lowest kept score; or
+    its IoU with a higher-scoring survivor within 1e-3 of nms_thresh; or it
+    overlaps (IoU > nms_thresh - 1e-3) another unpaired row so explained,
+    whose flip decided its fate. Returns (pairs, unpaired, max box error,
+    max score error)."""
+    used = np.zeros(len(got), bool)
+    box_err = score_err = 0.0
+    paired = np.zeros(len(want), bool)
+    for j, w in enumerate(want):
+        ok = ~used & (np.abs(got[:, :4] - w[:4]).max(1) <= box_tol) & (np.abs(got[:, 4] - w[4]) <= score_tol)
+        if ok.any():
+            i = int(np.argmax(ok))
+            used[i] = paired[j] = True
+            box_err = max(box_err, float(np.abs(got[i, :4] - w[:4]).max()))
+            score_err = max(score_err, float(abs(got[i, 4] - w[4])))
+    both = np.concatenate([got, want])
+    lone = both[np.concatenate([~used, ~paired])]
+    if len(lone):
+        scores = both[:, 4]
+        iou = iou_np(lone[:, :4], both[:, :4])
+        above = scores[None, :] > lone[:, 4:5]
+        explained = ((np.abs(scores[None, :] - lone[:, 4:5]) <= near).sum(1) >= 2) \
+            | (np.abs(lone[:, 4] - PROB_LOGIT) <= near) | (np.abs(lone[:, 4] - scores.min()) <= near) \
+            | (above & (np.abs(iou - nms_thresh) <= 1e-3)).any(1)
+        links = iou_np(lone[:, :4], lone[:, :4]) > nms_thresh - 1e-3
+        for _ in range(len(lone)):
+            explained = explained | (links & explained[None, :]).any(1)
+        for row in lone[~explained]:
+            print(f"unpaired detection {row.tolist()}: best IoU with a higher-scoring row "
+                  f"{(iou_np(row[None, :4], both[:, :4]) * (scores > row[4])).max():.6f}", flush=True)
+        check(bool(explained.all()), f"{int((~explained).sum())} unpaired detections are no near-ties")
+    return int(paired.sum()), len(lone), box_err, score_err
+
+
+def phase_inference_vs_cpu(templates_np, dev: torch.device):
+    rng = np.random.default_rng(5)
+    images = pink_images(rng, [(192, 256), (176, 248)])
+    model = init_model(TinyFacesDetector(), torch.Generator().manual_seed(0)).to(dev)
+    counts = calibrate(model, images, dev)
+    print(f"calibration: cells above prob_thresh per image at levels 0.5/1/2: {counts}", flush=True)
+    check(min(counts) > 0, "a pyramid level has no candidates")
+    ec = EvalConfig(scales=(-1, 0, 1))
+    gpu = PyramidDetector(model, templates_np, DetectorConfig(), ec, device=dev)
+    cpu = PyramidDetector(copy.deepcopy(model).cpu(), templates_np, DetectorConfig(), ec, device="cpu")
+    got, want = gpu.detect_batch(images), cpu.detect_batch(images)
+    out = {"pairs": 0, "unpaired": 0, "max_box_err_px": 0.0, "max_score_err": 0.0}
+    for g, w in zip(got, want):
+        check(g.shape[1] == 5 and np.isfinite(g).all() and len(w) > 20, f"card output {g.shape}, CPU {w.shape}")
+        p, u, be, se = match_detections(g, w)
+        check(p >= 0.98 * max(len(g), len(w)), f"only {p} of {len(g)}/{len(w)} detections paired")
+        out["pairs"] += p
+        out["unpaired"] += u
+        out["max_box_err_px"] = max(out["max_box_err_px"], be)
+        out["max_score_err"] = max(out["max_score_err"], se)
+    print(f"pyramid card vs CPU, ResNet-101 fp32, 2 images ~192x256, scales (-1, 0, 1): "
+          f"{out['pairs']} detections paired, {out['unpaired']} unpaired near-ties, max box error "
+          f"{out['max_box_err_px']:.3g} px, max score error {out['max_score_err']:.3g}", flush=True)
+    return model, out
+
+
+def conv_flops(model: TinyFacesDetector, hw: tuple, dev: torch.device) -> float:
+    """Convolution FLOPs (2 x MACs) of one forward at input size hw."""
+    total = [0.0]
+
+    def hook(m, inp, out):
+        total[0] += 2.0 * out.numel() * m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        model(torch.zeros(1, *hw, 3, device=dev))
+    for h in handles:
+        h.remove()
+    return total[0]
+
+
+def split_ms(trace: list) -> dict:
+    """Elapsed ms per phase from consecutive (phase, event) marks; levels'
+    resize and decode summed, forwards kept per level."""
+    out: dict = {}
+    for (_, a), (phase, b) in zip(trace, trace[1:]):
+        key = phase if phase.startswith("forward") else phase.split()[0]
+        out[key] = out.get(key, 0.0) + a.elapsed_time(b)
+    return out
+
+
+def phase_full_width(calibrated: TinyFacesDetector, templates_np, dev: torch.device, name: str):
+    rng = np.random.default_rng(6)
+    b = 32
+    images = pink_images(rng, [(768, 1024)] * b)
+    levels = [(192, 256), (384, 512), (768, 1024), (1536, 2048)]
+    tflop = sum(conv_flops(calibrated, hw, dev) for hw in levels) / 1e12
+    print(f"4-level pyramid of one 768x1024 image: {tflop:.3f} TFLOP of convolution", flush=True)
+    results = {"conv_tflop_per_image": tflop}
+    for label, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+        model = TinyFacesDetector(dtype=dtype).to(dev)
+        model.load_state_dict(calibrated.state_dict())
+        det = PyramidDetector(model, templates_np, DetectorConfig(), EvalConfig(), device=dev)
+        t0 = time.perf_counter()
+        packed = det.pack_inputs(images)
+        pack_ms = 1000.0 * (time.perf_counter() - t0)
+        for _ in range(2):  # warm-up: cuDNN's first calls
+            det._fetch(det.detect_batch_async(packed))
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        n = 3
+        t0 = time.perf_counter()
+        for _ in range(n):
+            outs = det._fetch(det.detect_batch_async(packed))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        for o in outs:
+            check(o.ndim == 2 and o.shape[1] == 5 and np.isfinite(o).all(), f"{label}: output {o.shape}")
+        start = torch.cuda.Event(enable_timing=True)
+        det.trace = [("start", start)]
+        start.record()
+        det._fetch(det.detect_batch_async(packed))
+        split = split_ms(det.trace)
+        det.trace = None
+        lat = []
+        for i in range(7):
+            t0 = time.perf_counter()
+            det.detect_batch(images[i:i + 1])
+            lat.append(1000.0 * (time.perf_counter() - t0))
+        r = {"img_per_s": n * b / wall, "batch_ms": 1000.0 * wall / n, "pack_ms": pack_ms,
+             "batch1_ms": float(np.median(lat[2:])), "peak_gib": peak,
+             "split_ms": {k: round(v, 3) for k, v in split.items()},
+             "dets_per_image": float(np.mean([len(o) for o in outs]))}
+        results[label] = r
+        print(f"pyramid {label} ResNet-101, 768x1024 bucket, batch {b}, EvalConfig() defaults: "
+              f"{r['img_per_s']:.2f} img/s ({r['batch_ms']:.1f} ms/batch over {n} batches after 2 "
+              f"warm-up; host pack {pack_ms:.1f} ms/batch not included), batch-1 latency "
+              f"{r['batch1_ms']:.2f} ms (median of 5, pack included), peak memory {peak:.2f} GiB, "
+              f"{r['dets_per_image']:.1f} detections/image ({name})", flush=True)
+        print(f"  CUDA-event split of one batch (ms): {json.dumps(r['split_ms'])}", flush=True)
+        del model, det
+        torch.cuda.empty_cache()
+    return results
+
+
+class MemoryDataset:
+    """(uint8 image, img_path) items, as WIDERFace(split="val") gives them."""
+
+    def __init__(self, items: list):
+        self.items = items
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def __getitem__(self, idx: int):
+        return self.items[idx]
+
+
+def phase_sweep_and_service(calibrated: TinyFacesDetector, templates_np, dev: torch.device):
+    import shutil
+
+    rng = np.random.default_rng(7)
+    sizes = [(300, 400)] * 24 + [(480, 360)] * 24 + [(200, 300)] * 16  # 3 buckets
+    items = [(im, f"{i % 4}--Event{i % 4}/smoke_{i}.jpg")
+             for i, im in enumerate(pink_images(rng, sizes))]
+    out_dir = ROOT / "build" / "chip_smoke" / "val_results"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    bf16 = TinyFacesDetector(dtype=torch.bfloat16).to(dev)
+    bf16.load_state_dict(calibrated.state_dict())
+    det = PyramidDetector(bf16, templates_np, DetectorConfig(), EvalConfig(), device=dev)
+    evaluate_model.run(det, MemoryDataset(items), 0.03, 0.3, "val", results_dir=out_dir,
+                       eval_batch=32, workers=4)
+    files = sorted(out_dir.glob("*/*.txt"))
+    check(len(files) == len(items), f"{len(files)} result files for {len(items)} images")
+    n_dets = 0
+    for f in files:
+        lines = f.read_text().splitlines()
+        check(lines[0] == f.stem + ".jpg" and int(lines[1]) == len(lines) - 2, f"{f}: header")
+        for row in lines[2:]:
+            v = row.split()
+            check(len(v) == 5 and all(x.lstrip("-").isdigit() for x in v[:4]), f"{f}: row {row!r}")
+            float(v[4])
+        n_dets += int(lines[1])
+    ph = evaluate_model.run.last_phases
+    print(f"sweep: {len(files)} result files, {n_dets} detections, {ph['images_per_sec']:.2f} img/s "
+          f"over {ph['wall']:.2f} s (bf16, 3 buckets, eval batch 32, first batch included)", flush=True)
+
+    # Service: fp32, so the batches it forms give detect_batch's results.
+    fp32 = PyramidDetector(calibrated, templates_np, DetectorConfig(), EvalConfig(), device=dev)
+    reqs = pink_images(rng, [(192, 256), (300, 400)] * 8)
+    want = [fp32.detect_batch([im])[0] for im in reqs]
+    svc = DetectionService(fp32, max_batch=8, max_delay_ms=20)
+    futures = [None] * len(reqs)
+
+    def client(t):
+        for i in range(t, len(reqs), 4):
+            futures[i] = svc.submit(reqs[i])
+
+    try:
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+            check(not th.is_alive(), "a client thread hung")
+        got = [f.result(timeout=300) for f in futures]
+    finally:
+        svc.close()
+    pairs = unpaired = 0
+    for g, w in zip(got, want):
+        p, u, _, _ = match_detections(g, w)
+        check(len(w) > 0 and p >= 0.98 * max(len(g), len(w)), f"service {g.shape} vs detect_batch {w.shape}")
+        pairs, unpaired = pairs + p, unpaired + u
+    print(f"service: 16 requests from 4 threads, 2 buckets: {pairs} detections equal detect_batch's, "
+          f"{unpaired} unpaired near-ties", flush=True)
+    return {"sweep_img_per_s": ph["images_per_sec"], "sweep_files": len(files),
+            "service_pairs": pairs, "service_unpaired": unpaired}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs an NVIDIA GPU")
@@ -283,7 +598,13 @@ def main() -> None:
     kres = phase_kernel(templates, dev, name)
     trainer, dataset, launches = phase_train(templates_np, dev, name)
     phase_checkpoint(trainer, dataset, templates_np, dev)
+    del trainer, dataset
+    torch.cuda.empty_cache()
 
+    model, vs_cpu = phase_inference_vs_cpu(templates_np, dev)
+    full = phase_full_width(model, templates_np, dev, name)
+    served = phase_sweep_and_service(model, templates_np, dev)
+    print(json.dumps({"inference": {"card": name, "gpu_vs_cpu": vs_cpu, **full, **served}}))
     print(json.dumps({"kernels": [{
         "name": "dense_assignment_reductions",
         "route": "cuda",

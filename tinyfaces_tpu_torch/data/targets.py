@@ -17,8 +17,9 @@ from tinyfaces_tpu_torch.ops.assignment_kernel import assign_targets_fused
 def normalize_images(images_u8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """uint8 (B, H, W, 3) -> normalized float (ToTensor + ImageNet Normalize,
     reference main.py:44-46)."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=dtype, device=images_u8.device)
-    std = torch.tensor(IMAGENET_STD, dtype=dtype, device=images_u8.device)
+    # Uploaded without a stream sync, so a caller can queue batches ahead.
+    mean = torch.tensor(IMAGENET_MEAN, dtype=dtype).to(images_u8.device, non_blocking=True)
+    std = torch.tensor(IMAGENET_STD, dtype=dtype).to(images_u8.device, non_blocking=True)
     x = images_u8.to(dtype) / 255.0
     return (x - mean) / std
 

@@ -11,6 +11,12 @@ Layout contract of the JAX package at the boundary: input (B, H, W, 3),
 output (B, H/8, W/8, 5T) float32, channels [0:T) template logits and
 [T:5T) regression as tx|ty|tw|th blocks. Inside, the model runs NCHW; a
 permuted NHWC input is a channels_last NCHW tensor, so no copy is made.
+
+`dtype` (models/resnet.py) sets the activation dtype; the heads and the
+upsample run in it too, and the output is float32 whatever it is, as in
+the JAX model, so decode and NMS always see float32. The JAX model's
+`stem_precomputed` entry (the folded 2x stem of ops/stemfold.py) is not
+ported.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tinyfaces_tpu_torch.models.resnet import BatchNorm2d, RESNET101_STAGES, ResNetBackbone
+from tinyfaces_tpu_torch.models.resnet import BatchNorm2d, Conv2d, RESNET101_STAGES, ResNetBackbone
 
 
 def bilinear_kernel_1d(k: int) -> np.ndarray:
@@ -45,20 +51,23 @@ class DepthwiseConvTranspose2x(nn.Module):
         self.weight = nn.Parameter(torch.tensor(kern, dtype=torch.float32), requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight, stride=2, padding=1, groups=x.shape[1])
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), stride=2, padding=1, groups=x.shape[1])
 
 
 class TinyFacesDetector(nn.Module):
     """The flagship model: FCN face detector with 25 anchor templates."""
 
     def __init__(self, num_templates: int = 25, num_objects: int = 1,
-                 stage_sizes: Sequence[int] = RESNET101_STAGES):
+                 stage_sizes: Sequence[int] = RESNET101_STAGES,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.num_templates = num_templates
+        self.stage_sizes = tuple(stage_sizes)
+        self.dtype = dtype
         out = (num_objects + 4) * num_templates
-        self.model = ResNetBackbone(stage_sizes)
-        self.score_res3 = nn.Conv2d(512, out, 1)
-        self.score_res4 = nn.Conv2d(1024, out, 1)
+        self.model = ResNetBackbone(stage_sizes, dtype)
+        self.score_res3 = Conv2d(512, out, 1)
+        self.score_res4 = Conv2d(1024, out, 1)
         self.score4_upsample = DepthwiseConvTranspose2x(out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

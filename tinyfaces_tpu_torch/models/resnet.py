@@ -11,6 +11,13 @@ JAX weight bridge (utils/convert.py) map by name.
 BatchNorm follows flax, not nn.BatchNorm2d: the running variance is updated
 with the *biased* batch variance (torch uses the unbiased one), with
 momentum 0.1 in torch's convention (= flax momentum 0.9).
+
+`dtype` is the JAX model's mixed-precision knob: the input is cast to it and
+activations run in it (bfloat16 for inference) while parameters and BN
+statistics stay float32. Convolutions cast their weights to the activation
+dtype; batch norm normalises in float32 and rounds its output to the
+activation dtype, as flax does. None (the default) keeps the input's dtype,
+so `.double()` gives a float64 model.
 """
 
 from __future__ import annotations
@@ -58,6 +65,14 @@ class BatchNorm2d(nn.Module):
         return y
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d whose float32 weights are cast to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """3x3/2 max pool with pad 1; F.max_pool2d pads with -inf."""
     return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
@@ -71,16 +86,16 @@ class Bottleneck(nn.Module):
     def __init__(self, in_ch: int, width: int, stride: int = 1):
         super().__init__()
         out_ch = width * self.expansion
-        self.conv1 = nn.Conv2d(in_ch, width, 1, bias=False)
+        self.conv1 = Conv2d(in_ch, width, 1, bias=False)
         self.bn1 = BatchNorm2d(width)
-        self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1, bias=False)
+        self.conv2 = Conv2d(width, width, 3, stride=stride, padding=1, bias=False)
         self.bn2 = BatchNorm2d(width)
-        self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False)
+        self.conv3 = Conv2d(width, out_ch, 1, bias=False)
         self.bn3 = BatchNorm2d(out_ch)
         self.downsample = None
         if stride != 1 or in_ch != out_ch:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
+                Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
                 BatchNorm2d(out_ch),
             )
 
@@ -98,9 +113,11 @@ class ResNetBackbone(nn.Module):
     res3: stride 8, 512 channels. res4: stride 16, 1024 channels.
     """
 
-    def __init__(self, stage_sizes: Sequence[int] = RESNET101_STAGES):
+    def __init__(self, stage_sizes: Sequence[int] = RESNET101_STAGES,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.dtype = dtype
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64)
         in_ch = 64
         for stage_idx, (n_blocks, width) in enumerate(zip(stage_sizes, (64, 128, 256)), start=1):
@@ -112,6 +129,8 @@ class ResNetBackbone(nn.Module):
             setattr(self, f"layer{stage_idx}", nn.Sequential(*blocks))
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         x = max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
         x = self.layer1(x)
         res3 = self.layer2(x)

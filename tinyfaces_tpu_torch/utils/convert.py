@@ -11,11 +11,16 @@ tools/convert_torch_checkpoint.convert_state_dict:
   score heads kernel/bias             <-> weight/bias
   score4_upsample kernel (4, 4, C)    <-> weight (C, 1, 4, 4) depthwise
   backbone/layer{s}_{i}/downsample_*  <-> model.layer{s}.{i}.downsample.{0,1}
+
+`from_npz` and `from_reference_pth` read the JAX package's .npz export and
+a reference PyTorch checkpoint into the same state_dict.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import re
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -85,6 +90,28 @@ def from_jax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
         name = {"mean": "running_mean", "var": "running_var"}[leaf]
         sd[f"{_torch_module(path)}.{name}"] = torch.tensor(np.array(w, np.float32))
     return sd
+
+
+def from_npz(path: str | Path) -> dict[str, torch.Tensor]:
+    """state_dict from the JAX package's flat .npz export
+    ({params, batch_stats} trees, utils/serialization.save_npz)."""
+    from tinyfaces_tpu.utils.serialization import unflatten_npz
+
+    with np.load(path) as npz:
+        tree = unflatten_npz(npz)
+    return from_jax(tree["params"], tree.get("batch_stats", {}))
+
+
+def from_reference_pth(path: str | Path) -> dict[str, torch.Tensor]:
+    """state_dict from a reference PyTorch checkpoint (a DetectionModel
+    training checkpoint or a torchvision ResNet state_dict), converted by
+    tools/convert_torch_checkpoint.py, which is loaded by its path."""
+    tool = Path(__file__).resolve().parents[2] / "tools" / "convert_torch_checkpoint.py"
+    spec = importlib.util.spec_from_file_location("_convert_torch_checkpoint", tool)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    tree = module.convert_torch_checkpoint(path)
+    return from_jax(tree["params"], tree["batch_stats"])
 
 
 def to_jax(state_dict: dict) -> tuple[dict, dict]:
