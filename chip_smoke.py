@@ -12,7 +12,8 @@ Phases, each printing its findings; any failure raises and exits non-zero:
      of each batch without valid GT: with noise off the values agree within
      1e-6 and the indices wherever the top-2 gap exceeds 3e-6; with noise
      on, the label maps of assign_targets_fused disagree on < 0.2% of
-     anchors; both are timed with CUDA events (median of 20);
+     anchors; both are timed with CUDA events (median of 20) at the train
+     step's shapes, whose bound is reckoned from the timed inputs;
   3. train: Trainer.train_epoch on full ResNet-101 at batch 12, 500x500,
      fp32, default DetectorConfig, the real templates, over a seeded
      in-memory dataset; losses finite, parameters moved, the upsample
@@ -37,32 +38,53 @@ Phases, each printing its findings; any failure raises and exits non-zero:
   7. sweep and service: evaluate_model.run over 64 in-memory images of
      mixed sizes (3 buckets) writes the result tree under
      build/chip_smoke/, checked for count and format; DetectionService
-     answers 16 requests from 4 threads with detect_batch's results.
+     answers 16 requests from 4 threads with detect_batch's results;
+  8. training through the CLI: a synthetic WIDER train tree of 48 images at
+     WIDER sizes (long side 1024) with 1/f-spectrum pixels, 1-40 faces of
+     10-300 px each and two crowd images of ~1000 faces of 10-20 px (so
+     crops exceed max_gt 192), its annotation file written under
+     build/chip_smoke/; decode hands in the in-memory arrays, everything
+     after it is the port's own code. `main.run` with the CLI defaults
+     (ResNet-101, batch 12, 500x500, fp32, the C++ engine) for `--epochs 2
+     --save-every 1 --metrics-log ...`, then `--resume checkpoint_1
+     --epochs 2` from a fresh model, each call entered with TF32 on: the
+     CLI turned TF32 off for matmuls and convolutions, every sample came from
+     the C++ engine, K1 launched once per step, losses finite, both
+     checkpoints written, the JSONL holds the per-step records and an
+     epoch_end record whose gt_dropped_boxes is > 0 and equals the overflow
+     counters, and the resumed epoch gives the uninterrupted run's per-step
+     losses within rtol 1e-5 (cuDNN's algorithm choice moves the 7th digit).
 
+The kernel build and the C++ engine build run side by side in phase 1.
 The second-to-last line of output is the card's `nvidia-smi` name and power
-limit; before it, one JSON line describes each kernel, and before that one
-JSON line holds the inference numbers; the last line is
-{"ok": true, "device": {...}}.
+limit; before it, one JSON line describes each kernel (its launches on each
+path, error, times, bound), before that one JSON line holds phase 8's
+training numbers and before that one the inference numbers; the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
+import shutil
 import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tinyfaces_tpu.config import DetectorConfig, EvalConfig, TrainConfig
 from tinyfaces_tpu_torch import evaluate_model
-from tinyfaces_tpu_torch.data import load_templates
+from tinyfaces_tpu_torch import main as train_cli
+from tinyfaces_tpu_torch.config import DetectorConfig, EvalConfig, TrainConfig
+from tinyfaces_tpu_torch.data import WIDERFace, load_templates, native, overflow
 from tinyfaces_tpu_torch.data.loader import PrefetchLoader
 from tinyfaces_tpu_torch.data.targets import normalize_images
 from tinyfaces_tpu_torch.evaluation import PyramidDetector
@@ -120,11 +142,14 @@ def scene(rng, b, g, input_hw=(500, 500)):
 
 def phase_kernel(templates: torch.Tensor, dev: torch.device, name: str) -> dict:
     rng = np.random.default_rng(0)
-    b = 12
+    cfg = DetectorConfig()
+    b = TrainConfig().batch_size
+    hy, hx = cfg.heatmap_size
+    main_shape = (hy, hx, cfg.max_gt)  # the train step's: timed, and its bound reckoned
     max_err = 0.0
     result = {}
-    for label, vsy, vsx, g in (("G8", 63, 63, 8), ("G192", 63, 63, 192),
-                               ("G512", 63, 63, 512), ("ragged61x63", 61, 63, 192)):
+    for label, vsy, vsx, g in (("G8", hy, hx, 8), (f"G{cfg.max_gt}", hy, hx, cfg.max_gt),
+                               ("G512", hy, hx, 512), (f"ragged{hy - 2}x{hx}", hy - 2, hx, cfg.max_gt)):
         boxes_np, valid_np = scene(rng, b, g)
         boxes = torch.from_numpy(boxes_np).to(dev)
         valid = torch.from_numpy(valid_np).to(dev)
@@ -171,12 +196,15 @@ def phase_kernel(templates: torch.Tensor, dev: torch.device, name: str) -> dict:
               f"decisive anchors {decisive.float().mean().item():.4f}, "
               f"noisy label mismatch {mismatch:.2e}", flush=True)
 
-        if label == "G192":  # the main path's shape
+        if (vsy, vsx, g) == main_shape:
             args = (boxes, valid, templates, seed)
             result["ms"] = cuda_ms(lambda: assignment_kernel.dense_assignment_reductions(*args, **kw))
             result["plain_ms"] = cuda_ms(
                 lambda: assignment_kernel.dense_assignment_reductions_reference(*args, **kw))
-            print(f"kernel time B=12 63x63x25 G=192 noise on: kernel {result['ms']:.4f} ms, "
+            nb, ng = boxes.shape[:2]  # the timed inputs' shapes
+            result["bound_ms"], result["bound_by"] = k1_bound(nb, vsy, vsx, templates.shape[0], ng)
+            print(f"kernel time B={b} {vsy}x{vsx}x{templates.shape[0]} G={g} noise on: "
+                  f"kernel {result['ms']:.4f} ms, "
                   f"plain twin {result['plain_ms']:.4f} ms (CUDA events, median of 20; {name})",
                   flush=True)
     result["max_abs_err"] = max_err
@@ -231,7 +259,7 @@ def phase_train(templates_np, dev: torch.device, name: str):
     cfg, tc = DetectorConfig(), TrainConfig()
     dataset = make_dataset(cfg, N_SAMPLES)
     model = init_model(TinyFacesDetector(), torch.Generator().manual_seed(0))
-    trainer = Trainer(model, cfg, tc, templates_np, device=dev, seed=0)
+    trainer = Trainer(model, cfg, tc, templates_np, device=dev, seed=0, augment="python")
     trainer.setup(steps_per_epoch=len(dataset) // tc.batch_size)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     forward_vs_cpu(model, dev)
@@ -277,7 +305,8 @@ def phase_checkpoint(trainer: Trainer, dataset: list, templates_np, dev: torch.d
     path = save_checkpoint(trainer.model, trainer.opt, trainer.step, epoch=0,
                            batch_size=trainer.tc.batch_size, save_path=out_dir)
     fresh = Trainer(init_model(TinyFacesDetector(), torch.Generator().manual_seed(1)),
-                    trainer.cfg, trainer.tc, templates_np, device=dev, seed=trainer.seed)
+                    trainer.cfg, trainer.tc, templates_np, device=dev, seed=trainer.seed,
+                    augment="python")
     fresh.setup(steps_per_epoch=len(dataset) // trainer.tc.batch_size)
     fresh.restore(load_checkpoint(path, map_location=dev))
     batch = next(iter(PrefetchLoader(dataset, trainer.tc.batch_size, device=dev, seed=5)))
@@ -577,10 +606,168 @@ def phase_sweep_and_service(calibrated: TinyFacesDetector, templates_np, dev: to
             "service_pairs": pairs, "service_unpaired": unpaired}
 
 
+class MemoryTrainSet(WIDERFace):
+    """The train WIDERFace of an annotation file whose pixels are handed in
+    decoded: `_decode` returns the in-memory array, so the smoke needs no
+    image decoder; augmentation and everything after it are the port's."""
+
+    def __init__(self, ann: Path, images: list, templates_np, cfg: DetectorConfig):
+        super().__init__(ann, templates_np, cfg=cfg, split="train")
+        self.images = images
+
+    def _decode(self, idx: int) -> np.ndarray:
+        return self.images[idx]
+
+
+TRAIN_TREE_SIZES = [(683, 1024), (1024, 683), (768, 1024)]  # WIDER's long side is 1024
+CROWDS = (5, 30)  # images holding ~1000 faces of 10-20 px
+
+
+def write_train_tree(out_dir: Path, rng, n: int = 48) -> tuple[Path, list]:
+    """n 1/f-spectrum images at WIDER sizes and their WIDER-format
+    annotation file: 1-40 faces of 10-300 px per image, ~1000 faces of
+    10-20 px in the crowd images."""
+    images = pink_images(rng, [TRAIN_TREE_SIZES[i % 3] for i in range(n)])
+    lines = []
+    for i, im in enumerate(images):
+        h, w = im.shape[:2]
+        if i in CROWDS:
+            k = int(rng.integers(950, 1050))
+            fw = rng.uniform(10, 20, k)
+        else:
+            k = int(rng.integers(1, 41))
+            fw = rng.uniform(10, 300, k)
+        fh = np.minimum(fw * rng.uniform(1.0, 1.3, k), h - 2)
+        x1, y1 = rng.uniform(0, w - fw - 1), rng.uniform(0, h - fh - 1)
+        lines += [f"{i % 4}--Event{i % 4}/train_{i}.jpg", str(k)]
+        lines += [f"{int(a)} {int(b)} {max(1, int(c))} {max(1, int(d))} 0 0 0 0 0 0"
+                  for a, b, c, d in zip(x1, y1, fw, fh)]
+    ann = out_dir / "wider_face_train_bbx_gt.txt"
+    ann.write_text("\n".join(lines) + "\n")
+    return ann, images
+
+
+def step_records(path: Path) -> tuple[list, list]:
+    records = [json.loads(line) for line in path.read_text().splitlines()]
+    return ([r for r in records if "event" not in r],
+            [r for r in records if r.get("event") == "epoch_end"])
+
+
+def phase_train_cli(templates_np, dev: torch.device, name: str) -> tuple[dict, int]:
+    out = ROOT / "build" / "chip_smoke" / "train_cli"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ann, images = write_train_tree(out, np.random.default_rng(8))
+    cfg, tc = DetectorConfig(), TrainConfig()
+    dataset = MemoryTrainSet(ann, images, templates_np, cfg)
+    n_faces = sum(len(s.bboxes) for s in dataset.samples)
+    print(f"train tree: {len(images)} images, {n_faces} faces, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # The C++ engine alone on one batch of the tree's images (8 threads).
+    batch_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        native.native_augment_batch(images[:tc.batch_size],
+                                    [s.bboxes for s in dataset.samples[:tc.batch_size]],
+                                    cfg.input_size, cfg.neg_thresh, cfg.max_gt, seed=1, n_threads=8)
+        batch_ms.append(1000.0 * (time.perf_counter() - t0))
+
+    def cli(run_dir: Path, *extra: str):
+        run_dir.mkdir()
+        args = train_cli.arguments([str(ann), str(ann), "--device", str(dev), *extra])
+        # TF32 on, as cuDNN has it in a fresh process: the fp32 CLI must turn it off.
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        with contextlib.chdir(run_dir):  # weights/ goes under the run's directory
+            trainer = train_cli.run(args, dataset)
+        check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+              "the fp32 CLI left TF32 on")
+        return trainer
+
+    overflow.reset()
+    native.counters.update(samples=0, seconds=0.0)
+    assignment_kernel.launch_count = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    full = cli(out / "full", "--epochs", "2", "--save-every", "1",
+               "--metrics-log", str(out / "full.jsonl"))
+    full_wall = time.perf_counter() - t0
+    dropped = overflow.snapshot()["dropped_boxes"]
+    wait_ms = full.loader_wait_ms[1:]
+    resumed = cli(out / "resumed", "--resume", str(out / "full" / "weights" / "checkpoint_1"),
+                  "--epochs", "2", "--metrics-log", str(out / "resumed.jsonl"))
+    torch.cuda.synchronize(dev)
+    launches = assignment_kernel.launch_count
+    samples, native_s = native.counters["samples"], native.counters["seconds"]
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    per_epoch = len(dataset) // tc.batch_size
+    steps = full.step + resumed.step - per_epoch
+    check(full.step == 2 * per_epoch and resumed.step == 2 * per_epoch,
+          f"steps {full.step} / {resumed.step}, want {2 * per_epoch} each")
+    check(launches == steps, f"{launches} kernel launches in {steps} CLI steps")
+    check(samples == steps * tc.batch_size, f"{samples} samples from the C++ engine in {steps} steps")
+    check(full.skipped_steps == 0 and resumed.skipped_steps == 0, "non-finite steps")
+    for ck in ("checkpoint_1", "checkpoint_2"):
+        check((out / "full" / "weights" / ck).is_file(), f"{ck} missing")
+    full_steps, full_ends = step_records(out / "full.jsonl")
+    res_steps, _ = step_records(out / "resumed.jsonl")
+    check([(r["epoch"], r["step"]) for r in full_steps]
+          == [(e, i) for e in (0, 1) for i in range(per_epoch)], "per-step JSONL records")
+    check(len(full_ends) == 2 and full_ends[-1]["gt_dropped_boxes"] == dropped and dropped > 0,
+          f"epoch_end gt_dropped_boxes {[r['gt_dropped_boxes'] for r in full_ends]}, "
+          f"overflow counters {dropped}")
+    losses = lambda recs: np.array([[r["loss_cls_step"], r["loss_reg_step"]]  # noqa: E731
+                                    for r in recs if r["epoch"] == 1], np.float64)
+    want, got = losses(full_steps), losses(res_steps)
+    check(bool(np.isfinite(losses(full_steps + res_steps)).all()), "non-finite losses")
+    check(got.shape == want.shape == (per_epoch, 2), f"resumed losses {got.shape}")
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    check(rel <= 1e-5, f"resumed epoch 1 losses differ by {rel:.3g} (rtol 1e-5)")
+
+    img_s = [r["images_per_sec"] for r in full_ends]
+    result = {
+        "card": name, "steps": steps, "epochs": "2 + resumed 1", "batch": tc.batch_size,
+        "ms_per_step": [1000.0 * tc.batch_size / v for v in img_s],
+        "img_per_s": img_s,
+        "loader_wait_ms_per_step": float(np.mean(wait_ms)),
+        "loader_wait_ms_max": float(np.max(wait_ms)),
+        "native_ms_per_batch_in_run": 1000.0 * native_s / (steps),
+        "native_batch12_8threads_ms": float(np.median(batch_ms)),
+        "peak_gib": peak / 2**30,
+        "gt_dropped_boxes": dropped,
+        "resumed_loss_max_rel_diff": rel,
+        "first_run_wall_s": full_wall,
+    }
+    print(f"train CLI ResNet-101 B={tc.batch_size} 500x500 fp32, C++ engine: "
+          f"{[round(v, 2) for v in result['ms_per_step']]} ms/step and "
+          f"{[round(v, 2) for v in img_s]} img/s per epoch (StepTimer, step 0 excluded), "
+          f"loader wait {result['loader_wait_ms_per_step']:.3f} ms/step after step 0, "
+          f"C++ engine {result['native_ms_per_batch_in_run']:.1f} ms of calls per batch in the run, "
+          f"{result['native_batch12_8threads_ms']:.1f} ms per batch of 12 on 8 threads alone, "
+          f"peak memory {result['peak_gib']:.2f} GiB, {dropped} GT boxes dropped, "
+          f"resumed losses within {rel:.2g} ({name})", flush=True)
+    return result, launches
+
+
+def k1_bound(b: int, y: int, x: int, t: int, g: int) -> tuple[float, str]:
+    """Least time of K1 on an H100 SXM for these shapes (ms) and what bounds
+    it: ~15 fp32 operations per anchor-GT pair (the +1-convention IoU, its
+    division, the noise scale) at 67 TFLOP/s, against the bytes read once
+    (GT, valid, templates, seeds) and written once (per-anchor max/argmax,
+    per-GT max/argmax) at 3.35 TB/s."""
+    ops_ms = 15.0 * b * y * x * t * g / 67e12 * 1e3
+    nbytes = b * g * 16 + b * g + t * 16 + b * 4 + b * y * x * t * 8 + b * g * 8
+    bytes_ms = nbytes / 3.35e12 * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
+    start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = card()
@@ -589,9 +776,11 @@ def main() -> None:
           flush=True)
 
     t0 = time.perf_counter()
-    assignment_kernel._kernel()
-    print(f"build: dense_assignment.cu compiled and loaded in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    with ThreadPoolExecutor(2) as pool:  # nvcc and the host compiler side by side
+        for build in [pool.submit(assignment_kernel._kernel), pool.submit(native.load)]:
+            build.result()
+    print(f"build: dense_assignment.cu (nvcc) and tinyfaces_native.cpp (host C++) compiled and "
+          f"loaded in {time.perf_counter() - t0:.2f} s", flush=True)
 
     templates_np = load_templates()
     templates = torch.tensor(templates_np, dtype=torch.float32, device=dev)
@@ -604,16 +793,25 @@ def main() -> None:
     model, vs_cpu = phase_inference_vs_cpu(templates_np, dev)
     full = phase_full_width(model, templates_np, dev, name)
     served = phase_sweep_and_service(model, templates_np, dev)
+    del model
+    torch.cuda.empty_cache()
+    train_cli_result, cli_launches = phase_train_cli(templates_np, dev, name)
+    print(f"all phases passed in {time.perf_counter() - start:.1f} s ({name})", flush=True)
     print(json.dumps({"inference": {"card": name, "gpu_vs_cpu": vs_cpu, **full, **served}}))
+    print(json.dumps({"train_cli": train_cli_result}))
     print(json.dumps({"kernels": [{
         "name": "dense_assignment_reductions",
         "route": "cuda",
         "source": "tinyfaces_tpu_torch/csrc/dense_assignment.cu",
         "replaces": "tinyfaces_tpu/ops/pallas_assignment.py:209",
-        "launches": launches,
+        "launches": launches + cli_launches,
+        "launches_by_path": {"train_epoch": launches, "train_cli": cli_launches},
         "max_abs_err": kres["max_abs_err"],
         "ms": kres["ms"],
         "plain_ms": kres["plain_ms"],
+        "bound_ms": kres["bound_ms"],
+        "bound_by": kres["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes it
     }]}))
     print(name)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,23 +1,38 @@
-"""The port never imports JAX: every module of tinyfaces_tpu_torch, and
-chip_smoke.py, imports in a fresh interpreter where `import jax` and
-`import PIL` fail (the machine with the GPU has neither)."""
+"""The port imports nothing of JAX or of the JAX package: every module of
+tinyfaces_tpu_torch, and chip_smoke.py, imports in a fresh interpreter where
+`import jax`, `import tinyfaces_tpu` and `import PIL` fail (the machine with
+the GPU has neither JAX nor PIL). The port's own copies of what it took from
+the JAX package (configurations, templates.json, the step timer) stay equal
+to the originals."""
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
+
+import tinyfaces_tpu.config as jax_config
+import tinyfaces_tpu.data as jax_data
+import tinyfaces_tpu.utils.profiling as jax_profiling
+import tinyfaces_tpu_torch.config as port_config
+import tinyfaces_tpu_torch.data as port_data
+import tinyfaces_tpu_torch.utils.profiling as port_profiling
 
 ROOT = Path(__file__).resolve().parent.parent
 
 _PROBE = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["tinyfaces_tpu"] = None  # and so does any import of the JAX package
 sys.modules["PIL"] = None  # PIL is imported only where an image is decoded or drawn
 import tinyfaces_tpu_torch
 names = ["chip_smoke"] + [m.name for m in pkgutil.walk_packages(
     tinyfaces_tpu_torch.__path__, "tinyfaces_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items() if v is not None)
+banned = ("jax", "tinyfaces_tpu")
+assert not any(k.split(".")[0] in banned for k, v in sys.modules.items() if v is not None)
 print(len(names))
 """
 
@@ -26,4 +41,41 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 26  # chip_smoke + every module of the package
+    assert int(out.stdout.split()[-1]) >= 36  # chip_smoke + every module of the package
+
+
+@pytest.mark.parametrize("name", ["ReceptiveField", "DetectorConfig", "TrainConfig", "EvalConfig"])
+def test_config_copies_match_jax(name):
+    ours, theirs = getattr(port_config, name), getattr(jax_config, name)
+    fields = lambda cls: [(f.name, f.type) for f in dataclasses.fields(cls)]  # noqa: E731
+    assert fields(ours) == fields(theirs)
+    assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs())
+    assert ours.__dataclass_params__.frozen and theirs.__dataclass_params__.frozen
+
+
+def test_config_constants_and_templates_match_jax():
+    for name in ("IMAGENET_MEAN", "IMAGENET_STD", "NUM_TEMPLATES", "NUM_OBJECTS"):
+        assert getattr(port_config, name) == getattr(jax_config, name), name
+    assert port_config.DetectorConfig().out_channels == jax_config.DetectorConfig().out_channels
+    assert port_data.TEMPLATE_FILE.read_bytes() == jax_data.TEMPLATE_FILE.read_bytes()
+
+
+def test_step_timer_matches_jax_on_a_scripted_clock(monkeypatch):
+    results = []
+    for mod in (port_profiling, jax_profiling):
+        clock = iter([0.0, 0.5, 0.75, 1.5, 1.5, 2.25, 3.0, 3.5])
+        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(clock))
+        timer = mod.StepTimer(warmup=2)
+        stats = [(timer.measured_steps, timer.elapsed, timer.steps_per_sec, timer.items_per_sec)]
+        for items in (3, 4, 5, 6, 7, 8):
+            timer.tick(items=items)
+            stats.append((timer.measured_steps, timer.elapsed, timer.steps_per_sec,
+                          timer.items_per_sec))
+        timer.reset()
+        timer.tick(1)
+        timer.tick(2)
+        stats.append((timer.measured_steps, timer.elapsed, timer.items_per_sec))
+        results.append(stats)
+    assert results[0] == results[1]
+    assert results[0][6] == (4, 1.75, 4 / 1.75, (5 + 6 + 7 + 8) / 1.75)
+    assert results[0][7] == (0, 0.0, 0.0)  # after reset, two ticks are still warmup

@@ -225,7 +225,7 @@ def test_nan_guard_drops_poisoned_update():
 
 def test_checkpoint_round_trip(tmp_path):
     data = _dataset(4)
-    a = Trainer(_port_model(), CFG, TC, load_templates(), seed=3)
+    a = Trainer(_port_model(), CFG, TC, load_templates(), device="cpu", seed=3)
     a.setup(steps_per_epoch=2)
     a.train_step(_batch(data[:2]))
     path = save_checkpoint(a.model, a.opt, a.step, epoch=7, batch_size=2,
@@ -233,7 +233,7 @@ def test_checkpoint_round_trip(tmp_path):
     payload = load_checkpoint(path)
     assert payload["epoch"] == 7 and payload["step"] == 1 and payload["batch_size"] == 2
 
-    b = Trainer(_port_model(seed=9), CFG, TC, load_templates(), seed=3)
+    b = Trainer(_port_model(seed=9), CFG, TC, load_templates(), device="cpu", seed=3)
     b.setup(steps_per_epoch=2)
     b.restore(payload)
     for k, v in a.model.state_dict().items():
@@ -244,7 +244,8 @@ def test_checkpoint_round_trip(tmp_path):
 
 
 def test_train_epoch_runs_two_steps(capsys):
-    trainer = Trainer(_port_model(), CFG, TC, load_templates(), seed=0)
+    trainer = Trainer(_port_model(), CFG, TC, load_templates(), device="cpu", seed=0,
+                      augment="python")
     trainer.setup(steps_per_epoch=2)
     timer = trainer.train_epoch(_dataset(5), epoch=0)  # drop_last: 2 batches of 2
     out = capsys.readouterr().out
@@ -256,8 +257,8 @@ def test_train_epoch_runs_two_steps(capsys):
 
 def test_loader_order_is_a_function_of_seed_and_epoch():
     data = _dataset(7)
-    a = PrefetchLoader(data, 2, workers=2, seed=1, epoch=3)
-    b = PrefetchLoader(data, 2, workers=3, seed=1, epoch=3)
+    a = PrefetchLoader(data, 2, device="cpu", workers=2, seed=1, epoch=3)
+    b = PrefetchLoader(data, 2, device="cpu", workers=3, seed=1, epoch=3)
     np.testing.assert_array_equal(a.order(3), b.order(3))
     assert not np.array_equal(a.order(3), a.order(4))
     batches = list(a)

@@ -1,11 +1,11 @@
-"""Data layer of the port: templates, WIDER evaluation data, device-side
-targets, the batch loader.
+"""Data layer of the port: templates, WIDER data (train augmentation and the
+val/test splits), GT-overflow accounting, the C++ augmentation engine,
+device-side targets, the batch loaders.
 
 `load_templates` mirrors tinyfaces_tpu/data/__init__.py: it reads the
-checked-in `tinyfaces_tpu/data/templates.json` by path (that package's
-`data` module imports JAX, so it is not imported) and rounds to 8 decimals.
-`get_dataloader` is the reference-compatible factory for the val/test
-splits; the training split waits for ROADMAP item 3.
+port's `templates.json` (a byte copy of the JAX package's) and rounds to 8
+decimals. Re-clustering a missing file (`clustering/`) is not ported.
+`get_dataloader` is the reference-compatible factory.
 """
 
 from __future__ import annotations
@@ -15,11 +15,10 @@ from pathlib import Path
 
 import numpy as np
 
-import tinyfaces_tpu
-from tinyfaces_tpu.config import DetectorConfig
+from tinyfaces_tpu_torch.config import DetectorConfig
 from tinyfaces_tpu_torch.data.wider_face import WIDERFace, parse_wider_annotations  # noqa: F401
 
-TEMPLATE_FILE = Path(tinyfaces_tpu.__file__).resolve().parent / "data" / "templates.json"
+TEMPLATE_FILE = Path(__file__).resolve().parent / "templates.json"
 
 
 def load_templates(template_file: str | Path | None = None) -> np.ndarray:
@@ -27,7 +26,8 @@ def load_templates(template_file: str | Path | None = None) -> np.ndarray:
     decimals. Raises FileNotFoundError when the file is missing."""
     template_file = Path(template_file or TEMPLATE_FILE)
     if not template_file.exists():
-        raise FileNotFoundError(f"{template_file} missing (re-clustering is not ported)")
+        raise FileNotFoundError(f"{template_file} missing; re-clustering templates from the "
+                                "train boxes (clustering/) is not ported: see ROADMAP.md")
     with open(template_file) as f:
         templates = json.load(f)
     return np.round(np.array(templates, np.float64), decimals=8)
@@ -43,10 +43,11 @@ def get_dataloader(
     cfg: DetectorConfig | None = None,
 ):
     """Reference-compatible factory (reference datasets/__init__.py:11):
-    returns (dataset, templates) for the val/test splits, iterated per
-    image."""
-    if train:
-        raise ValueError("the WIDER training data is not ported yet: ROADMAP item 3 (slice 3)")
+    returns (dataset, templates). `train=True` with split "train" gives the
+    augmenting train dataset (batched by data/loader.py); val/test datasets
+    are iterated per image."""
+    if train != (split == "train"):
+        raise ValueError(f"train={train} does not fit split={split!r}")
     del num_templates  # the JAX factory uses it only to re-cluster, which is not ported
     templates = load_templates(template_file)
     dataset = WIDERFace(datapath, templates, cfg=cfg,

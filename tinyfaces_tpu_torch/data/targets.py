@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from tinyfaces_tpu.config import IMAGENET_MEAN, IMAGENET_STD, DetectorConfig
+from tinyfaces_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD, DetectorConfig
 from tinyfaces_tpu_torch.ops.assignment import compute_pad_mask
 from tinyfaces_tpu_torch.ops.assignment_kernel import assign_targets_fused
 

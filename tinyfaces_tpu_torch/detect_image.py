@@ -17,7 +17,7 @@ import argparse
 
 import numpy as np
 
-from tinyfaces_tpu.config import DetectorConfig, EvalConfig
+from tinyfaces_tpu_torch.config import DetectorConfig, EvalConfig
 from tinyfaces_tpu_torch.data import load_templates
 from tinyfaces_tpu_torch.evaluation import PyramidDetector, get_model
 

@@ -23,7 +23,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from tinyfaces_tpu.config import DetectorConfig, EvalConfig
+from tinyfaces_tpu_torch.config import DetectorConfig, EvalConfig
 from tinyfaces_tpu_torch.data import get_dataloader
 from tinyfaces_tpu_torch.evaluation import PyramidDetector, _round_up, get_model, write_results
 

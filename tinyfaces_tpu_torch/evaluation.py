@@ -3,7 +3,7 @@
 Port of tinyfaces_tpu/evaluation.py on the `rgb` wire:
   * `get_model` / `load_weights`: build the detector and load the port
     trainer's own checkpoint, the JAX package's .npz export, or a reference
-    PyTorch .pth (through tools/convert_torch_checkpoint.py);
+    PyTorch .pth (utils/convert.from_reference_pth);
   * `PyramidDetector`: the fused multi-scale pyramid — per-image resize of
     the mean-padded canvas to every level on the device, one forward per
     level, top-K decode, one cross-scale NMS per image — returning a packed
@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from tinyfaces_tpu.config import DetectorConfig, EvalConfig
+from tinyfaces_tpu_torch.config import DetectorConfig, EvalConfig
 from tinyfaces_tpu_torch.data.targets import normalize_images
 from tinyfaces_tpu_torch.data.wider_face import MEAN_PIXEL
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model

@@ -9,27 +9,39 @@ for one device:
     chain does;
   * StepLR (x0.1 every 20 epochs) as a per-step staircase;
   * the reference console line "Epoch: [e][i/n]  loss_cls ... loss_reg ...";
-  * checkpoints of {model, optimizer, step, epoch, batch_size} via torch.save.
+  * checkpoints of {model, optimizer, step, epoch, batch_size} via torch.save,
+    snapshotted to host memory and written atomically, on a background
+    thread when asked (`block=False`, then `wait_for_checkpoints()`);
+  * the epoch loop over WIDER data: the C++ augmentation engine
+    (`augment="native"`, the CLI's) or the dataset's own Python
+    augmentation (`augment="python"`), the GT-truncation line of the epoch
+    log, and the JAX package's JSONL metrics records (`metrics_path`).
 
-Each step's randomness comes from a generator seeded with (seed, step), so
-a resumed run draws exactly what an uninterrupted one would.
+Each step's randomness comes from a generator seeded with (seed, step), and
+each epoch's shuffle and augmentation from (seed, epoch), so a resumed run
+draws exactly what an uninterrupted one would. The input is the `rgb` wire
+(uint8 pixels); the other wires are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import threading
 from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from tinyfaces_tpu.config import DetectorConfig, TrainConfig
-from tinyfaces_tpu.utils.profiling import StepTimer
-from tinyfaces_tpu_torch.data.loader import PrefetchLoader
+from tinyfaces_tpu_torch.config import DetectorConfig, TrainConfig
+from tinyfaces_tpu_torch.data import overflow
+from tinyfaces_tpu_torch.data.loader import NativePrefetchLoader, PrefetchLoader
 from tinyfaces_tpu_torch.data.targets import build_targets
 from tinyfaces_tpu_torch.loss import AvgMeter, LossBreakdown, detection_loss
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector
+from tinyfaces_tpu_torch.utils.metrics_log import MetricsLogger
+from tinyfaces_tpu_torch.utils.profiling import StepTimer
 
 # Per-group learning-rate factors (reference model.py:67-87).
 GROUP_LR_FACTORS = {
@@ -136,15 +148,66 @@ def print_state(idx: int, epoch: int, size: int, loss_cls: float, loss_reg: floa
     )
 
 
+def _to_host(obj):
+    """Copy of a (nested) state with every tensor moved to host memory."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+_write_lock = threading.Lock()  # one checkpoint file written at a time
+_pending: list[threading.Thread] = []
+_failures: list[BaseException] = []
+
+
+def _write(payload: dict, path: Path) -> None:
+    with _write_lock:
+        tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, path)  # atomic: a reader never sees a partial file
+
+
+def _write_in_background(payload: dict, path: Path) -> None:
+    try:
+        _write(payload, path)
+    except BaseException as e:  # reported by wait_for_checkpoints
+        _failures.append(e)
+
+
 def save_checkpoint(model: TinyFacesDetector, opt: torch.optim.Optimizer, step: int,
                     epoch: int, batch_size: int, save_path: str | Path = "weights",
-                    filename: str = "checkpoint") -> Path:
-    """torch.save of {model, optimizer, step, epoch, batch_size}."""
+                    filename: str = "checkpoint", block: bool = True) -> Path:
+    """torch.save of {model, optimizer, step, epoch, batch_size}. The state
+    is copied to host memory first; `block=False` then writes it on a
+    background thread, and training goes on: call `wait_for_checkpoints()`
+    before exit or before reading the file back."""
     path = Path(save_path).absolute() / filename
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({"model": model.state_dict(), "optimizer": opt.state_dict(),
-                "step": int(step), "epoch": int(epoch), "batch_size": int(batch_size)}, path)
+    payload = {"model": _to_host(model.state_dict()), "optimizer": _to_host(opt.state_dict()),
+               "step": int(step), "epoch": int(epoch), "batch_size": int(batch_size)}
+    if block:
+        _write(payload, path)
+    else:
+        thread = threading.Thread(target=_write_in_background, args=(payload, path),
+                                  name=f"checkpoint {filename}")
+        _pending.append(thread)
+        thread.start()
     return path
+
+
+def wait_for_checkpoints() -> None:
+    """Block until every background save has been written; raises if one
+    failed."""
+    while _pending:
+        _pending.pop(0).join()
+    if _failures:
+        errors = list(_failures)
+        _failures.clear()
+        raise RuntimeError(f"{len(errors)} background checkpoint write(s) failed") from errors[0]
 
 
 def load_checkpoint(path: str | Path, map_location="cpu") -> dict:
@@ -159,11 +222,15 @@ class Trainer:
     cfg: DetectorConfig
     tc: TrainConfig
     templates: np.ndarray
-    device: torch.device | str = "cpu"
+    device: torch.device | str = "cuda"
     seed: int = 0
     nan_guard: bool = False  # drop non-finite updates on device
+    metrics_path: Optional[str | Path] = None  # JSONL structured log
+    augment: str = "native"  # "native": the C++ engine; "python": dataset[i]
 
     def __post_init__(self):
+        if self.augment not in ("native", "python"):
+            raise ValueError(f"augment must be 'native' or 'python', not {self.augment!r}")
         self.device = torch.device(self.device)
         self.model.to(self.device)
         self.templates_t = torch.as_tensor(np.asarray(self.templates), dtype=torch.float32,
@@ -174,6 +241,8 @@ class Trainer:
         self.class_average = AvgMeter()
         self.reg_average = AvgMeter()
         self.skipped_steps = 0  # non-finite-loss steps seen
+        self.loader_wait_ms: list[float] = []  # per batch, of the last epoch
+        self.metrics = MetricsLogger(self.metrics_path)
 
     def setup(self, steps_per_epoch: int) -> None:
         self.opt = make_optimizer(self.model, self.tc)
@@ -184,6 +253,9 @@ class Trainer:
         self.model.load_state_dict(payload["model"])
         self.opt.load_state_dict(payload["optimizer"])
         self.step = int(payload["step"])
+
+    def close(self) -> None:
+        self.metrics.close()
 
     def step_generator(self) -> torch.Generator:
         seed = np.random.SeedSequence((self.seed, self.step)).generate_state(1, np.uint64)[0]
@@ -198,14 +270,22 @@ class Trainer:
 
     def train_epoch(self, dataset, epoch: int, log_every: int = 1) -> StepTimer:
         """One pass over `dataset`; returns the epoch's StepTimer (step 0 is
-        its warmup, so its rates are steady-state)."""
-        loader = PrefetchLoader(dataset, self.tc.batch_size, device=self.device,
-                                workers=self.tc.workers, seed=self.seed, epoch=epoch)
+        its warmup, so its rates are steady-state). With augment="native"
+        `dataset` is a train WIDERFace whose samples the C++ engine
+        augments; with "python" its items are taken as they come (a
+        WIDERFace's Python augmentation, or any map-style dataset of
+        train-sample dicts)."""
+        cls = NativePrefetchLoader if self.augment == "native" else PrefetchLoader
+        loader = cls(dataset, self.tc.batch_size, device=self.device, workers=self.tc.workers,
+                     seed=self.seed, epoch=epoch)
         timer = StepTimer(warmup=1)
         n_batches = len(loader)
         # Loss scalars are fetched lazily: the host blocks on the device only
         # at logging points.
         pending: list = []
+        # This step's per-image losses; the console's running averages
+        # follow the reference's never-reset AvgMeter.
+        last_step_loss = {"cls": None, "reg": None}
 
         def drain():
             # Fetching the loss waits for the step to finish on the device,
@@ -219,17 +299,48 @@ class Trainer:
                 else:
                     self.class_average.update(float(plb.class_loss), bsz)
                     self.reg_average.update(float(plb.reg_loss), bsz)
+                    last_step_loss["cls"] = float(plb.class_loss) / bsz
+                    last_step_loss["reg"] = float(plb.reg_loss) / bsz
                 timer.tick(items=bsz)
             pending.clear()
 
-        for idx, batch in enumerate(loader):
+        batches = iter(loader)
+        batch = next(batches, None)
+        idx = 0
+        while batch is not None:
             lb = self.train_step(batch)
             pending.append((idx, batch["image"].shape[0], lb))
+            # Take the next batch (queue hand-over, non-blocking upload)
+            # while this step runs on the device.
+            batch = next(batches, None)
             if idx % log_every == 0:
                 drain()
                 print_state(idx, epoch, n_batches,
                             self.class_average.average, self.reg_average.average)
+                self.metrics.log(
+                    epoch=epoch, step=idx,
+                    loss_cls=self.class_average.average,
+                    loss_reg=self.reg_average.average,
+                    loss_cls_step=last_step_loss["cls"],
+                    loss_reg_step=last_step_loss["reg"],
+                    images_per_sec=timer.items_per_sec,
+                )
+            idx += 1
         drain()
+        self.loader_wait_ms = list(loader.wait_ms)
         if timer.measured_steps:
             print(f"epoch {epoch}: {timer.items_per_sec:.2f} images/sec")
+            ov = overflow.snapshot()
+            if ov["dropped_boxes"]:
+                print(f"epoch {epoch}: GT truncation — "
+                      f"{ov['dropped_boxes']} boxes dropped over "
+                      f"{ov['truncated_samples']} crops (cumulative); "
+                      f"consider raising DetectorConfig.max_gt")
+            self.metrics.log(
+                epoch=epoch, event="epoch_end",
+                loss_cls=self.class_average.average,
+                loss_reg=self.reg_average.average,
+                images_per_sec=timer.items_per_sec,
+                gt_dropped_boxes=ov["dropped_boxes"],
+            )
         return timer

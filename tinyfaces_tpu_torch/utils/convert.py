@@ -12,13 +12,17 @@ tools/convert_torch_checkpoint.convert_state_dict:
   score4_upsample kernel (4, 4, C)    <-> weight (C, 1, 4, 4) depthwise
   backbone/layer{s}_{i}/downsample_*  <-> model.layer{s}.{i}.downsample.{0,1}
 
-`from_npz` and `from_reference_pth` read the JAX package's .npz export and
-a reference PyTorch checkpoint into the same state_dict.
+`from_npz` reads the JAX package's .npz export into the same state_dict.
+`from_reference_pth` reads a reference PyTorch checkpoint (a DetectionModel
+training checkpoint, or a raw torchvision ResNet state_dict for the
+backbone): the port keeps the reference's module names, so only layer4, fc
+and num_batches_tracked are dropped and the dense (C, C, 4, 4) upsample
+becomes its depthwise diagonal, as tools/convert_torch_checkpoint.py does
+on the way to the JAX trees.
 """
 
 from __future__ import annotations
 
-import importlib.util
 import re
 from pathlib import Path
 
@@ -95,7 +99,7 @@ def from_jax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
 def from_npz(path: str | Path) -> dict[str, torch.Tensor]:
     """state_dict from the JAX package's flat .npz export
     ({params, batch_stats} trees, utils/serialization.save_npz)."""
-    from tinyfaces_tpu.utils.serialization import unflatten_npz
+    from tinyfaces_tpu_torch.utils.serialization import unflatten_npz
 
     with np.load(path) as npz:
         tree = unflatten_npz(npz)
@@ -103,15 +107,37 @@ def from_npz(path: str | Path) -> dict[str, torch.Tensor]:
 
 
 def from_reference_pth(path: str | Path) -> dict[str, torch.Tensor]:
-    """state_dict from a reference PyTorch checkpoint (a DetectionModel
-    training checkpoint or a torchvision ResNet state_dict), converted by
-    tools/convert_torch_checkpoint.py, which is loaded by its path."""
-    tool = Path(__file__).resolve().parents[2] / "tools" / "convert_torch_checkpoint.py"
-    spec = importlib.util.spec_from_file_location("_convert_torch_checkpoint", tool)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    tree = module.convert_torch_checkpoint(path)
-    return from_jax(tree["params"], tree["batch_stats"])
+    """state_dict from a reference PyTorch checkpoint: {"model": the
+    DetectionModel state_dict, ...}, or a raw torchvision ResNet state_dict
+    (backbone only)."""
+    payload = torch.load(Path(path), map_location="cpu", weights_only=True)
+    full = isinstance(payload, dict) and "model" in payload
+    sd = payload["model"] if full else payload
+    prefix = "model." if full else ""
+    out: dict[str, torch.Tensor] = {}
+    for name, w in sd.items():
+        w = torch.as_tensor(w).detach().float()
+        if full and name.startswith(("score_res3.", "score_res4.")):
+            out[name] = w
+            continue
+        if full and name.startswith("score4_upsample."):
+            ids = torch.arange(w.shape[0])
+            diag = w[ids, ids]  # (C, kh, kw)
+            off_diag = w.clone()
+            off_diag[ids, ids] = 0
+            if off_diag.abs().max() > 0:
+                raise ValueError("score4_upsample has cross-channel weights; "
+                                 "cannot express as depthwise")
+            out["score4_upsample.weight"] = diag[:, None].contiguous()
+            continue
+        if not name.startswith(prefix):
+            continue
+        name = name[len(prefix):]
+        if name.split(".")[0] not in ("conv1", "bn1", "layer1", "layer2", "layer3") \
+                or name.endswith("num_batches_tracked"):
+            continue  # layer4 is deleted in the reference (model.py:23); fc
+        out[f"model.{name}"] = w
+    return out
 
 
 def to_jax(state_dict: dict) -> tuple[dict, dict]:
