@@ -38,23 +38,29 @@ THR = dict(pos_thresh=0.7, neg_thresh=0.3)
 CFG = DetectorConfig(input_size=(128, 128), heatmap_size=(16, 16), max_gt=8)
 
 
-def make_scene(seed, nt=6, g=8, n_valid=5):
-    """Same generator as tests/test_pallas_assignment.py::make_scene."""
+def make_scene(seed, nt=6, g=8, n_valid=5, slots=None):
+    """Same generator as tests/test_pallas_assignment.py::make_scene; with
+    `slots` the n_valid boxes sit at those indices of the padded list and
+    the slots between them hold zero-extent invalid boxes."""
     rng = np.random.default_rng(seed)
     w = rng.uniform(8, 120, nt)
     h = rng.uniform(8, 120, nt)
     templates = np.stack([-w / 2, -h / 2, w / 2, h / 2, np.ones(nt)], axis=1).astype(np.float32)
+    slots = list(range(n_valid)) if slots is None else list(slots)
+    assert len(slots) == n_valid
     gt = np.zeros((g, 4), np.float32)
-    for i in range(n_valid):
+    for i in slots:
         x1, y1 = rng.uniform(0, 120, 2)
         gt[i] = [x1, y1, x1 + rng.uniform(10, 70), y1 + rng.uniform(10, 70)]
-    valid = np.arange(g) < n_valid
+    valid = np.isin(np.arange(g), slots)
     return templates, gt, valid
 
 
-# (seed, vsy, vsx, g, n_valid): 20 rows is ragged against the Pallas 8-row
-# blocks, 13 too; G=1; no valid GT.
-SCENES = [(0, 20, 24, 8, 5), (1, 13, 24, 8, 5), (2, 20, 24, 1, 1), (3, 12, 12, 8, 0)]
+# (seed, vsy, vsx, g, n_valid, slots): 20 rows is ragged against the
+# Pallas 8-row blocks, 13 too; G=1; no valid GT; a valid mask with holes;
+# a first valid GT past index 0.
+SCENES = [(0, 20, 24, 8, 5, None), (1, 13, 24, 8, 5, None), (2, 20, 24, 1, 1, None),
+          (3, 12, 12, 8, 0, None), (4, 20, 24, 12, 5, (0, 2, 3, 7, 10)), (5, 13, 24, 8, 3, (3, 4, 6))]
 
 
 def t(x):
@@ -76,8 +82,8 @@ def test_dense_overlap_matches_jax(seed):
 def test_reference_reductions_match_pallas_interpret(scene):
     """Noise off on both sides: the twin equals the Pallas kernel run in
     interpret mode (whose on-core PRNG is off there)."""
-    seed, vsy, vsx, g, n_valid = scene
-    templates, gt, valid = make_scene(seed, g=g, n_valid=n_valid)
+    seed, vsy, vsx, g, n_valid, slots = scene
+    templates, gt, valid = make_scene(seed, g=g, n_valid=n_valid, slots=slots)
     want = jax_reductions(jnp.asarray(gt), jnp.asarray(valid), jnp.asarray(templates),
                           jnp.int32(seed), vsx=vsx, vsy=vsy, interpret=True, **RF)
     got = dense_assignment_reductions(t(gt)[None], t(valid)[None], t(templates),
@@ -105,8 +111,8 @@ def test_pad_mask_matches_jax(flip):
 def test_composition_with_jax_noise_matches_assign_targets(scene):
     """The twin's reductions plus compose_targets, fed JAX's own tie-break
     draws, reproduce ops/assignment.assign_targets."""
-    seed, vsy, vsx, g, n_valid = scene
-    templates, gt, valid = make_scene(seed, g=g, n_valid=n_valid)
+    seed, vsy, vsx, g, n_valid, slots = scene
+    templates, gt, valid = make_scene(seed, g=g, n_valid=n_valid, slots=slots)
     if n_valid >= 2:
         gt[1, 2] = gt[1, 0]  # a degenerate box: dropped before assignment
         gt[-1] = gt[0] + 0.5  # a near-twin of GT 0, likely sharing its best anchor

@@ -11,21 +11,71 @@
 //   per GT:     max over all anchors, argmax as a flat C-order index over
 //               (Y, X, T), smallest index on ties  -> (B, G)
 //
-// What bounds it: arithmetic. Each (anchor, GT) pair costs ~20 flops and one
-// IEEE division; the only device-memory traffic is the (B, Y, X, T) outputs.
-// Design: one thread per anchor loops over the image's GT boxes, which sit
-// in shared memory (G <= 512 -> 10 KB), with a strict '>' so the first GT
-// wins per anchor. The per-GT reduction across the grid is a cross-block
-// one: each warp reduces (orderable value, lowest lane) with redux.sync and
-// a ballot, one lane folds a packed 64-bit key into a shared per-GT slot,
-// and each block folds its slots into global memory with a 64-bit atomicMax
-// on (orderable(value) << 32) | (0xFFFFFFFF - flat_index). Max is order
-// independent, so the result is deterministic whatever the launch order.
+// What bounds it on an H100: instruction issue. The only device-memory
+// traffic is the GT list in and the (B, Y, X, T) maps out (~9.5 MB at the
+// train step's shapes, ~3 us at 3.35 TB/s); everything else is per-pair
+// arithmetic on operands in registers and shared memory. The bound counts
+// ~15 fp32 operations per *valid* (anchor, GT) pair at 67 TFLOP/s. The
+// compiled loop (sm_90a SASS, noise on) issues 199 instructions per valid
+// GT for a thread's 4 anchors, ~50 per pair:
+//   - the IoU: 4 min/max/add for the width, 1 mul, 1 sub, 1 compare; the
+//     height, the area sum and the GT's two shared loads are per thread;
+//   - the IEEE division (div.rn.f32): 15 with its branches: MUFU.RCP,
+//     FCHK, five FFMA (Newton steps and the remainder correction) and a
+//     call to a slow path that these operands never take. The compiler
+//     branches around it where no lane of the warp overlaps the GT, which
+//     saves most of them: dividing on every pair was much slower. It
+//     cannot be cross-multiplied away: the noise is added to the quotient,
+//     and the result must round like the plain PyTorch version;
+//   - the noise: 13, fmix32 (2 IMAD, 3 shift/xor pairs) on a key built with
+//     one IMAD, the shift to 24 bits, I2FP, one multiply and the add;
+//   - the reductions: 6 compare/selects, plus per GT two REDUX, a packed
+//     store by lane 0 and the loop's bookkeeping.
+// Measured (chip_smoke.py phase 2, NVIDIA H100 80GB HBM3, 700.00 W,
+// device time of a CUDA-graph replay): 0.18 ms for 106 M valid pairs at
+// the G192 scene, 7.6x its 0.024 ms bound; the earlier one-thread-per-
+// anchor kernel took 0.89 ms on the same inputs. At 50 instructions per
+// pair, 4 schedulers x 132 SMs at ~1.75 GHz issue 106 M pairs in ~0.18 ms:
+// issue-bound.
 //
-// Noise: stateless Philox-4x32-10 keyed by the image's seed, counter
-// (anchor, g / 4), one 32-bit draw per (anchor, g). Independent of the launch
-// configuration. Build without fast math and with --fmad=false so the IoU
-// rounds exactly like the plain PyTorch version.
+// The design, point by point:
+//   1. Compaction. Each block lists its image's valid g in shared memory,
+//      in their original order (a ballot and a prefix sum over the warps),
+//      and loops over n_valid only. Exact: a valid value is >= 0 and an
+//      invalid one -1, so padding never wins; an image without valid GT
+//      gives (-1, 0) per anchor, and an invalid g (-1, 0), which
+//      unpack_kernel writes for every g that no block touched: the plain
+//      version's first-index result.
+//   2. Shared-memory traffic. A GT costs one broadcast 128-bit load (its
+//      box) and one 64-bit load (area, original index). Each thread owns
+//      kAnchors anchors along x at one (y, t): they share the template,
+//      the GT's intersection height and the area sum, so one pair of loads
+//      serves kAnchors pairs.
+//   3. Noise. A counter hash keyed by (image seed, flat anchor index,
+//      original g): fmix32(fmix32(fmix32(seed ^ C0) ^ a) + g * C1) >> 8,
+//      24 random bits, times 1e-6 * 2^-24. Independent of the launch
+//      configuration; `kernel_noise` in ops/assignment_kernel.py mirrors it
+//      bit for bit, so the plain version fed those draws must agree with
+//      the kernel at the value level with noise on.
+//   4. Per-GT reduction without atomics in the loop. For each g a thread
+//      reduces over its own anchors in registers, the warp with two
+//      redux.sync (max value, then the lowest flat index holding it), and
+//      lane 0 stores the warp's packed key to s_part[warp][k] with a plain
+//      store. After the loop one pass folds the warps and issues one global
+//      64-bit atomicMax per valid g per block, on the key
+//      (orderable(value) << 32) | ~flat_index. Max does not depend on
+//      order, so the result is deterministic. Global atomics, not a
+//      cluster exchange through distributed shared memory: at the train
+//      step's shapes they are ~100 per valid g per image, a few thousand
+//      per image against ~10^7 pairs, and leave the loop untouched.
+//   5. Longest work first. A block's time grows with its image's n_valid,
+//      and a training batch mixes a crowd crop (up to G valid) with crops
+//      of a few faces. Each block counts every image's valid GTs (B * G
+//      bytes, from L2) and the launch walks the images heaviest first, so
+//      the long blocks start in the first wave instead of ending the launch.
+//
+// Build without fast math and with --fmad=false, so the IoU rounds exactly
+// like the plain PyTorch version: with noise off the two agree bit for bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -33,141 +83,217 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kAnchors = 4;  // anchors per thread, neighbours along x
 constexpr int kMaxG = 512;
+constexpr uint32_t kFull = 0xFFFFFFFFu;
+// 1e-6 * 2^-24: the noise is 1e-6 * (24-bit draw * 2^-24), and scaling by a
+// power of two commutes with rounding, so one multiply gives the same bits.
+constexpr float kNoiseUnit = 1e-6f * 0x1p-24f;
 
-__device__ __forceinline__ uint32_t orderable(float v) {
-  uint32_t bits = __float_as_uint(v);
-  return (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
 }
 
-__device__ __forceinline__ float from_orderable(uint32_t o) {
-  uint32_t bits = (o & 0x80000000u) ? (o & 0x7FFFFFFFu) : ~o;
-  return __uint_as_float(bits);
-}
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
-  const uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
-  const uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    uint32_t hi0 = __umulhi(kM0, ctr.x), lo0 = kM0 * ctr.x;
-    uint32_t hi1 = __umulhi(kM1, ctr.z), lo1 = kM1 * ctr.z;
-    ctr = make_uint4(hi1 ^ ctr.y ^ key.x, lo1, hi0 ^ ctr.w ^ key.y, lo0);
-    key.x += kW0;
-    key.y += kW1;
-  }
-  return ctr;
-}
-
-__device__ __forceinline__ uint32_t pick(uint4 v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
+template <bool kNoise>
 __global__ void __launch_bounds__(kThreads) reduce_kernel(
-    const float* __restrict__ gt_boxes,     // (B, G, 4)
+    const float4* __restrict__ gt_boxes,    // (B, G) boxes x1, y1, x2, y2
     const uint8_t* __restrict__ gt_valid,   // (B, G)
     const float* __restrict__ templates,    // (T, 4)
     const int32_t* __restrict__ seeds,      // (B,)
-    int G, int T, int X, int n_anchors,
-    float ofx, float ofy, float stx, float sty, int noise,
+    int B, int G, int T, int Y, int X, int XQ, int tiles,
+    float ofx, float ofy, float stx, float sty,
     float* __restrict__ best_iou,           // (B, Y*X*T)
     int32_t* __restrict__ best_gt,          // (B, Y*X*T)
     unsigned long long* __restrict__ pgt_key) {  // (B, G), zero-initialised
-  __shared__ float s_gx1[kMaxG], s_gy1[kMaxG], s_gx2[kMaxG], s_gy2[kMaxG];
-  __shared__ float s_garea[kMaxG];
-  __shared__ uint8_t s_valid[kMaxG];
-  __shared__ unsigned long long s_key[kMaxG];
+  // Dynamic shared memory, (88 * G + 8 * B) bytes at 8 warps: boxes, per-warp partial
+  // keys, (area bits, original g) of the compacted valid GTs; every image's
+  // valid count, the images in launch order.
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* s_box = reinterpret_cast<float4*>(smem);
+  unsigned long long* s_part = reinterpret_cast<unsigned long long*>(smem + 16 * G);
+  uint2* s_aux = reinterpret_cast<uint2*>(smem + 16 * G + 8 * kWarps * G);
+  int* s_nv = reinterpret_cast<int*>(smem + (16 + 8 * kWarps + 8) * G);
+  int* s_img = s_nv + B;
+  __shared__ int s_count[kWarps];
 
-  const int b = blockIdx.y;
-  const float* gb = gt_boxes + (size_t)b * G * 4;
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    float gx1 = gb[g * 4 + 0], gy1 = gb[g * 4 + 1];
-    float gx2 = gb[g * 4 + 2], gy2 = gb[g * 4 + 3];
-    s_gx1[g] = gx1; s_gy1[g] = gy1; s_gx2[g] = gx2; s_gy2[g] = gy2;
-    s_garea[g] = (gx2 - gx1 + 1.0f) * (gy2 - gy1 + 1.0f);
-    s_valid[g] = gt_valid[(size_t)b * G + g];
-    s_key[g] = 0ull;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  // 0. Longest work first: count every image's valid GTs and order the
+  // images by count, descending (stable); block i works on tile i % tiles
+  // of the (i / tiles)-th image in that order, so the crowded images'
+  // blocks are dispatched first and the light ones fill in behind them.
+  for (int bi = warp; bi < B; bi += kWarps) {
+    int n = 0;
+    for (int g0 = 0; g0 < G; g0 += 32) {
+      const int g = g0 + lane;
+      n += __popc(__ballot_sync(kFull, g < G && gt_valid[(size_t)bi * G + g]));
+    }
+    if (lane == 0) s_nv[bi] = n;
   }
   __syncthreads();
+  for (int bi = threadIdx.x; bi < B; bi += kThreads) {
+    const int n = s_nv[bi];
+    int rank = 0;
+    for (int o = 0; o < B; ++o) rank += s_nv[o] > n || (s_nv[o] == n && o < bi);
+    s_img[rank] = bi;
+  }
+  __syncthreads();
+  const int b = s_img[blockIdx.x / tiles];
+  const int tile = blockIdx.x % tiles;
 
-  const int a = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = a < n_anchors;
-  const int aa = active ? a : 0;
-  const int t = aa % T;
-  const int x = (aa / T) % X;
-  const int y = aa / (T * X);
+  // 1. Compact the image's valid GTs, keeping their order.
+  int n_valid = 0;
+  for (int g0 = 0; g0 < G; g0 += kThreads) {
+    const int g = g0 + threadIdx.x;
+    const bool valid = g < G && gt_valid[(size_t)b * G + g];
+    const uint32_t ballot = __ballot_sync(kFull, valid);
+    if (lane == 0) s_count[warp] = __popc(ballot);
+    __syncthreads();
+    int offset = n_valid, total = n_valid;
+    for (int w = 0; w < kWarps; ++w) {
+      offset += w < warp ? s_count[w] : 0;
+      total += s_count[w];
+    }
+    if (valid) {
+      const int k = offset + __popc(ballot & ((1u << lane) - 1u));
+      const float4 box = gt_boxes[(size_t)b * G + g];
+      s_box[k] = box;
+      s_aux[k] = make_uint2(__float_as_uint((box.z - box.x + 1.0f) * (box.w - box.y + 1.0f)),
+                            (uint32_t)g);
+    }
+    __syncthreads();
+    n_valid = total;
+  }
+
+  // 2. This thread's anchors (y, xq * kAnchors + j, t). A thread past the
+  // last item, and a column past the grid's edge, shadows a live anchor:
+  // same coordinates, same flat index, so it changes no reduction.
+  const int items = Y * XQ * T;
+  const int item = tile * kThreads + threadIdx.x;
+  const bool live = item < items;
+  const int w = live ? item : items - 1;
+  const int t = w % T;
+  const int xq = (w / T) % XQ;
+  const int y = w / (T * XQ);
   const float dx1 = templates[t * 4 + 0], dy1 = templates[t * 4 + 1];
   const float dx2 = templates[t * 4 + 2], dy2 = templates[t * 4 + 3];
-  const float cx = ofx + (float)x * stx;
   const float cy = ofy + (float)y * sty;
-  const float ax1 = cx + dx1, ay1 = cy + dy1, ax2 = cx + dx2, ay2 = cy + dy2;
+  const float ay1 = cy + dy1, ay2 = cy + dy2;
   const float tarea = (dx2 - dx1 + 1.0f) * (dy2 - dy1 + 1.0f);
-  const uint2 key = make_uint2((uint32_t)seeds[b], 0x7F4A7C15u);
-  const int lane = threadIdx.x & 31;
-  const uint32_t warp_first = (uint32_t)(a - lane);
+  const uint32_t seed_key = fmix32((uint32_t)seeds[b] ^ 0x7F4A7C15u);
 
-  float best_v = __uint_as_float(0xFF800000u);  // -inf
-  int best_g = 0;
-  uint4 bits = make_uint4(0, 0, 0, 0);
-  for (int g = 0; g < G; ++g) {
-    float iw = fminf(ax2, s_gx2[g]) - fmaxf(ax1, s_gx1[g]) + 1.0f;
-    float ih = fminf(ay2, s_gy2[g]) - fmaxf(ay1, s_gy1[g]) + 1.0f;
-    float inter = iw * ih;
-    float v = (iw > 0.0f && ih > 0.0f) ? inter / (tarea + s_garea[g] - inter) : 0.0f;
-    if (noise) {
-      if ((g & 3) == 0) bits = philox4x32_10(make_uint4((uint32_t)aa, (uint32_t)(g >> 2), 0u, 0u), key);
-      v = v + 1e-6f * ((float)(pick(bits, g & 3) >> 8) * (1.0f / 16777216.0f));
-    }
-    if (!s_valid[g]) v = -1.0f;
-    if (v > best_v) { best_v = v; best_g = g; }
-
-    // Per-GT: warp max of the orderable value, lowest lane (= lowest flat
-    // index) among the lanes holding it; inactive lanes hold 0.
-    uint32_t o = active ? orderable(v) : 0u;
-    uint32_t m = __reduce_max_sync(0xFFFFFFFFu, o);
-    uint32_t hit = __ballot_sync(0xFFFFFFFFu, o == m);
-    if (lane == 0 && m != 0u) {
-      uint32_t idx = warp_first + (uint32_t)(__ffs(hit) - 1);
-      atomicMax(&s_key[g], ((unsigned long long)m << 32) | (0xFFFFFFFFu - idx));
-    }
+  float ax1[kAnchors], ax2[kAnchors], best_v[kAnchors];
+  uint32_t flat[kAnchors], akey[kAnchors];
+  int best_g[kAnchors];
+#pragma unroll
+  for (int j = 0; j < kAnchors; ++j) {
+    int x = xq * kAnchors + j;
+    x = x < X ? x : xq * kAnchors;
+    const float cx = ofx + (float)x * stx;
+    ax1[j] = cx + dx1;
+    ax2[j] = cx + dx2;
+    flat[j] = (uint32_t)((y * X + x) * T + t);
+    akey[j] = fmix32(seed_key ^ flat[j]);
+    best_v[j] = -1.0f;
+    best_g[j] = 0;
   }
-  if (active) {
-    best_iou[(size_t)b * n_anchors + a] = best_v;
-    best_gt[(size_t)b * n_anchors + a] = best_g;
+
+  for (int k = 0; k < n_valid; ++k) {
+    const float4 gb = s_box[k];
+    const uint2 aux = s_aux[k];
+    const float area_sum = tarea + __uint_as_float(aux.x);
+    const float ih = fminf(ay2, gb.w) - fmaxf(ay1, gb.y) + 1.0f;
+    const uint32_t gkey = aux.y * 0x9E3779B9u;
+    uint32_t part_v = 0, part_i = 0;
+#pragma unroll
+    for (int j = 0; j < kAnchors; ++j) {
+      const float iw = fminf(ax2[j], gb.z) - fmaxf(ax1[j], gb.x) + 1.0f;
+      const float inter = iw * ih;
+      float v = (iw > 0.0f && ih > 0.0f) ? inter / (area_sum - inter) : 0.0f;
+      if (kNoise) v = v + (float)(fmix32(akey[j] + gkey) >> 8) * kNoiseUnit;
+      if (v > best_v[j]) {
+        best_v[j] = v;
+        best_g[j] = (int)aux.y;
+      }
+      // v >= 0, so its bits order like its value; ascending j is ascending
+      // flat index, so a strict '>' keeps the first.
+      const uint32_t o = __float_as_uint(v);
+      if (j == 0 || o > part_v) {
+        part_v = o;
+        part_i = flat[j];
+      }
+    }
+    const uint32_t m = __reduce_max_sync(kFull, part_v);
+    const uint32_t i = __reduce_min_sync(kFull, part_v == m ? part_i : kFull);
+    if (lane == 0)
+      s_part[warp * G + k] = ((unsigned long long)(m | 0x80000000u) << 32) | (uint32_t)~i;
+  }
+
+  if (live) {
+    const size_t base = (size_t)b * Y * X * T;
+#pragma unroll
+    for (int j = 0; j < kAnchors; ++j) {
+      if (xq * kAnchors + j < X) {
+        best_iou[base + flat[j]] = best_v[j];
+        best_gt[base + flat[j]] = best_g[j];
+      }
+    }
   }
   __syncthreads();
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    if (s_key[g] != 0ull) atomicMax(&pgt_key[(size_t)b * G + g], s_key[g]);
+  for (int k = threadIdx.x; k < n_valid; k += kThreads) {
+    unsigned long long key = s_part[k];
+    for (int w2 = 1; w2 < kWarps; ++w2) {
+      const unsigned long long other = s_part[w2 * G + k];
+      key = other > key ? other : key;
+    }
+    atomicMax(&pgt_key[(size_t)b * G + s_aux[k].y], key);
   }
 }
 
+// Keys to (max, index); a g no block touched is invalid: (-1, 0).
 __global__ void unpack_kernel(const unsigned long long* __restrict__ pgt_key, int n,
                               float* __restrict__ pgt_max, int32_t* __restrict__ pgt_idx) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   unsigned long long k = pgt_key[i];
-  pgt_max[i] = from_orderable((uint32_t)(k >> 32));
-  pgt_idx[i] = (int32_t)(0xFFFFFFFFu - (uint32_t)(k & 0xFFFFFFFFull));
+  pgt_max[i] = k ? __uint_as_float((uint32_t)(k >> 32) & 0x7FFFFFFFu) : -1.0f;
+  pgt_idx[i] = k ? (int32_t)~(uint32_t)k : 0;
 }
 
 }  // namespace
 
 // Returns a cudaError_t (0 on success). Launches on `stream`, does not
-// synchronise, allocates nothing: pgt_key must be zeroed by the caller.
+// synchronise, allocates nothing: pgt_key must be zeroed by the caller and
+// gt_boxes 16-byte aligned.
 extern "C" int tf_dense_assignment(
     const float* gt_boxes, const uint8_t* gt_valid, const float* templates,
     const int32_t* seeds, int B, int G, int T, int Y, int X,
     float ofx, float ofy, float stx, float sty, int noise,
     float* best_iou, int32_t* best_gt, float* pgt_max, int32_t* pgt_idx,
     unsigned long long* pgt_key, void* stream) {
-  if (G < 1 || G > kMaxG || T < 1 || B < 1 || Y < 1 || X < 1)
+  if (G < 1 || G > kMaxG || T < 1 || B < 1 || Y < 1 || X < 1 ||
+      reinterpret_cast<uintptr_t>(gt_boxes) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int n_anchors = Y * X * T;
-  dim3 grid((n_anchors + kThreads - 1) / kThreads, B);
-  reduce_kernel<<<grid, kThreads, 0, s>>>(
-      gt_boxes, gt_valid, templates, seeds, G, T, X, n_anchors,
-      ofx, ofy, stx, sty, noise, best_iou, best_gt, pgt_key);
+  const int xq = (X + kAnchors - 1) / kAnchors;
+  const int tiles = (Y * xq * T + kThreads - 1) / kThreads;
+  const size_t smem = (size_t)G * (16 + 8 * kWarps + 8) + (size_t)B * 8;
+  const float4* boxes = reinterpret_cast<const float4*>(gt_boxes);
+  auto kernel = noise ? reduce_kernel<true> : reduce_kernel<false>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<tiles * B, kThreads, smem, s>>>(boxes, gt_valid, templates, seeds, B, G, T, Y, X, xq,
+                                           tiles, ofx, ofy, stx, sty, best_iou, best_gt, pgt_key);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n = B * G;

@@ -11,10 +11,15 @@ Dispatch follows the tensors' device: CUDA tensors launch the kernel, CPU
 tensors take the twin. A kernel that fails to build or launch raises; there
 is no fallback.
 
-The kernel's tie-break noise is a Philox stream keyed by a per-image seed;
-the twin's is `torch.rand` under a generator seeded the same way. Both are
-1e-6 * U[0, 1), as in the reference (processor.py:193-195), and they only
-decide anchors whose IoUs tie to within 1e-6.
+The tie-break noise is 1e-6 * U[0, 1), as in the reference
+(processor.py:193-195); it only decides anchors whose IoUs tie to within
+1e-6. The kernel draws it from a counter hash keyed by (image seed, flat
+anchor index, original g); the twin's default is `torch.rand` under a
+generator seeded with the image's seed. `kernel_noise` is the plain mirror
+of the kernel's hash: fed to the twin as `noise_tensor`, it makes kernel and
+twin agree at the value level with noise on. (The TPU kernel's draws come
+from its on-core PRNG and cannot be reproduced; only their distribution is
+shared.)
 """
 
 from __future__ import annotations
@@ -34,6 +39,64 @@ NOISE_SCALE = 1e-6
 launch_count = 0
 
 _fn = None
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h * c) mod 2^32 for int64 h in [0, 2^32), in 16-bit halves so that
+    no product leaves int64."""
+    return ((h & 0xFFFF) * c + ((((h >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer on int64 holding uint32 values."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def kernel_noise_bits(seed: torch.Tensor, vsy: int, vsx: int, t: int, g: int) -> torch.Tensor:
+    """The kernel's 24-bit tie-break draws, (B, vsy, vsx, t, g) int64:
+    fmix32(fmix32(fmix32(seed ^ C0) ^ a) + g * C1) >> 8 for image seed
+    `seed[b]`, flat anchor index a = (y * vsx + x) * t + t_i and original GT
+    index g, all in uint32 arithmetic."""
+    dev = seed.device
+    anchors = torch.arange(vsy * vsx * t, dtype=torch.int64, device=dev)
+    gkey = _mul32(torch.arange(g, dtype=torch.int64, device=dev), 0x9E3779B9)
+    out = []
+    for s in _fmix32((seed.to(torch.int64).reshape(-1) & _M32) ^ 0x7F4A7C15):
+        akey = _fmix32(s ^ anchors)
+        out.append((_fmix32((akey[:, None] + gkey[None, :]) & _M32) >> 8).reshape(vsy, vsx, t, g))
+    return torch.stack(out)
+
+
+def kernel_noise(seed: torch.Tensor, vsy: int, vsx: int, t: int, g: int) -> torch.Tensor:
+    """The kernel's tie-break noise, (B, vsy, vsx, t, g) float32 in
+    [0, 1e-6): the 24-bit draws times 2^-24 times 1e-6, rounded once, as
+    the kernel does."""
+    unit = torch.tensor(NOISE_SCALE * 2.0**-24, dtype=torch.float32, device=seed.device)
+    return kernel_noise_bits(seed, vsy, vsx, t, g).to(torch.float32) * unit
+
+
+def valid_pairs(gt_valid: torch.Tensor, vsy: int, vsx: int, t: int) -> int:
+    """(anchor, valid GT) pairs of a batch: the kernel's work."""
+    return int(gt_valid.to(torch.bool).sum()) * vsy * vsx * t
+
+
+def k1_bound(gt_valid: torch.Tensor, vsy: int, vsx: int, t: int) -> tuple[float, str]:
+    """Least time of the kernel on an H100 SXM for these inputs (ms) and
+    what bounds it: ~15 fp32 operations (the +1-convention IoU, its
+    division, the noise scale) per valid anchor-GT pair at 67 TFLOP/s,
+    against the bytes read once (GT, valid, templates, seeds) and written
+    once (per-anchor max/argmax, per-GT max/argmax) at 3.35 TB/s."""
+    b, g = gt_valid.shape
+    ops_ms = 15.0 * valid_pairs(gt_valid, vsy, vsx, t) / 67e12 * 1e3
+    nbytes = b * g * 16 + b * g + t * 16 + b * 4 + b * vsy * vsx * t * 8 + b * g * 8
+    bytes_ms = nbytes / 3.35e12 * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
 def _kernel():
@@ -89,7 +152,7 @@ def _launch(gt_boxes, gt_valid, templates, seed, *, vsx, vsy, ofx, ofy, stx, sty
     return best_iou, best_gt, pgt_max, pgt_idx
 
 
-def dense_assignment_reductions_reference(
+def perturbed_iou(
     gt_boxes: torch.Tensor,  # (B, G, 4)
     gt_valid: torch.Tensor,  # (B, G) bool
     templates: torch.Tensor,  # (T, >=4)
@@ -103,24 +166,30 @@ def dense_assignment_reductions_reference(
     sty: float,
     noise: bool = True,
     noise_tensor: torch.Tensor | None = None,  # (B, Y, X, T, G) perturbation
-):
-    """Plain twin: materializes the perturbed (B, Y, X, T, G) IoU. With
-    `noise_tensor` given it is added as the perturbation (tests feed JAX's
-    own draws); otherwise `noise` draws 1e-6 * U[0,1) per image from a
+) -> torch.Tensor:
+    """The (B, Y, X, T, G) tensor the reductions run over: IoU plus
+    tie-break noise, -1 at invalid GTs. With `noise_tensor` given it is the
+    perturbation (tests feed JAX's own draws, the kernel's checks
+    `kernel_noise`); otherwise `noise` draws 1e-6 * U[0,1) per image from a
     generator seeded with that image's seed."""
-    b, g, _ = gt_boxes.shape
     iou = compute_dense_overlap(ofx, ofy, stx, sty, vsx, vsy, templates,
                                 gt_boxes.to(torch.float32), gt_valid)
     if noise_tensor is not None:
         iou = iou + noise_tensor.to(iou.device, torch.float32)
     elif noise:
         draws = []
-        for s in seed.reshape(b).tolist():
+        for s in seed.reshape(iou.shape[0]).tolist():
             gen = torch.Generator(device=iou.device).manual_seed(int(s))
             draws.append(torch.rand(iou.shape[1:], generator=gen, device=iou.device))
         iou = iou + NOISE_SCALE * torch.stack(draws)
-    pert = torch.where(gt_valid[:, None, None, None, :], iou, -1.0)
+    return torch.where(gt_valid[:, None, None, None, :], iou, -1.0)
 
+
+def dense_assignment_reductions_reference(gt_boxes, gt_valid, templates, seed, **kw):
+    """Plain twin: materializes `perturbed_iou` (same arguments) and reduces
+    it."""
+    pert = perturbed_iou(gt_boxes, gt_valid, templates, seed, **kw)
+    b, g = pert.shape[0], pert.shape[-1]
     # torch.max(dim) returns the first index of the maximum, like jnp.argmax.
     best_iou, best_gt = pert.max(dim=4)
     pgt_max, pgt_idx = pert.reshape(b, -1, g).max(dim=1)
