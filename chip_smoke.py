@@ -8,7 +8,8 @@ this one, other/this/this/other, at phase 2's timed scenes):
 
   0. device: needs CUDA; prints the card's name and power limit and turns
      TF32 off, so float32 means float32;
-  1. build: compiles the dense-assignment CUDA kernel from csrc/;
+  1. build: compiles the dense-assignment CUDA kernel, the C++ engine and
+     the JPEG entropy decoder from csrc/;
   2. kernel vs its plain PyTorch twin on the card, B=12 over the 63x63x25
      anchor grid with G in {8, 192, 512}, a ragged 61x63 grid and a
      train-like batch (G 192: no GT, a crowd crop of 192, then 1-40 GTs per
@@ -68,14 +69,42 @@ this one, other/this/this/other, at phase 2's timed scenes):
      > 0 and equals the overflow counters, and the resumed epoch gives the
      deterministic uninterrupted run's per-step losses within rtol 1e-5
      (with the default algorithms, whose atomics change the summation
-     order, the two runs of the seeded model drift apart by up to 3e-4).
+     order, the two runs of the seeded model drift apart by up to 3e-4);
+  9. JPEG fixtures (tests/torch_jpeg/): every baseline and grayscale file
+     entropy-decoded by csrc/jpeg_dct.cpp to the coefficients and quant
+     tables whose checksums the JAX package wrote in manifest.json; the
+     progressive file refused with PIL blocked, with the error that names
+     its sampling, and transcoded where PIL is installed;
+ 10. the jpegdct reconstruction (ops/jpeg.py) of the 768x1024-bucket
+     fixtures on the card against the CPU, entered with TF32 on: planes
+     within 1e-3 px, normalized RGB within 6e-5;
+ 11. phase 5 on the jpegdct wire, from the bytes of the 240x320 grayscale
+     and the 197x263 fixtures;
+ 12. phase 6's bf16 pyramid on the jpegdct wire, batch 32 of the
+     768x1024-bucket fixtures' bytes: img/s, the split with "unpack", the
+     host pack per batch (and per image on one thread), peak memory; the
+     unpack alone by stage, beside the rgb wire's normalize;
+ 13. evaluate_model.run with the CLI's default wire (jpegdct) over a WIDER
+     val tree of 40 fixture files (3 buckets), and DetectionService
+     answering 16 requests of JPEG bytes (one a DCTImage) from 4 threads
+     with detect_batch's results;
+ 14. phase 8's training through the CLI with `--transfer jpegdct` over a
+     train tree of 48 fixture files at WIDER sizes, annotated by phase 8's
+     generator: `--epochs 2`, entered with TF32 on; TF32 turned off, no
+     sample from the C++ engine, K1 once per step, losses finite, the
+     epoch_end gt_dropped_boxes > 0 and equal to the overflow counters;
+     ms/step, the loader's wait once the coefficients are cached, peak
+     memory.
 
-The kernel build and the C++ engine build run side by side in phase 1.
-The second-to-last line of output is the card's `nvidia-smi` name and power
-limit; before it, one JSON line describes each kernel (its launches on each
-path, error, times, bound), before that one JSON line holds phase 8's
-training numbers and before that one the inference numbers; the last line
-is {"ok": true, "device": {...}}.
+Phases run in the order 0-7, 9-13, 8, 14 (9-13 need phase 5's model).
+
+The kernel build and the two host builds (the C++ engine, the JPEG
+decoder) run side by side in phase 1. The second-to-last line of output is
+the card's `nvidia-smi` name and power limit; before it, one JSON line
+describes each kernel (its launches on each path, error, times, bound),
+before that one JSON line holds phases 9-14's jpegdct numbers, before that
+one phase 8's training numbers and before that one the inference numbers;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -102,12 +131,13 @@ import torch.nn.functional as F
 from tinyfaces_tpu_torch import evaluate_model
 from tinyfaces_tpu_torch import main as train_cli
 from tinyfaces_tpu_torch.config import DetectorConfig, EvalConfig, TrainConfig
-from tinyfaces_tpu_torch.data import WIDERFace, load_templates, native, overflow
+from tinyfaces_tpu_torch.data import WIDERFace, jpegdct, load_templates, native, overflow
 from tinyfaces_tpu_torch.data.loader import PrefetchLoader
 from tinyfaces_tpu_torch.data.targets import normalize_images
-from tinyfaces_tpu_torch.evaluation import PyramidDetector
+from tinyfaces_tpu_torch.evaluation import PyramidDetector, _round_up
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
 from tinyfaces_tpu_torch.ops import assignment_kernel
+from tinyfaces_tpu_torch.ops import jpeg as jpeg_ops
 from tinyfaces_tpu_torch.ops.assignment import compose_targets, compute_pad_mask
 from tinyfaces_tpu_torch.serving import DetectionService
 from tinyfaces_tpu_torch.trainer import Trainer, load_checkpoint, save_checkpoint
@@ -563,6 +593,22 @@ def match_detections(got: np.ndarray, want: np.ndarray, nms_thresh: float = 0.3,
     return int(paired.sum()), len(lone), box_err, score_err
 
 
+def compare_with_cpu(got: list, want: list) -> dict:
+    """Phase 5's check of the card's detections against the CPU's, image by
+    image: finite (N, 5) rows, > 20 detections on the CPU, >= 98% of them
+    paired (match_detections)."""
+    out = {"pairs": 0, "unpaired": 0, "max_box_err_px": 0.0, "max_score_err": 0.0}
+    for g, w in zip(got, want):
+        check(g.shape[1] == 5 and np.isfinite(g).all() and len(w) > 20, f"card output {g.shape}, CPU {w.shape}")
+        p, u, be, se = match_detections(g, w)
+        check(p >= 0.98 * max(len(g), len(w)), f"only {p} of {len(g)}/{len(w)} detections paired")
+        out["pairs"] += p
+        out["unpaired"] += u
+        out["max_box_err_px"] = max(out["max_box_err_px"], be)
+        out["max_score_err"] = max(out["max_score_err"], se)
+    return out
+
+
 def phase_inference_vs_cpu(templates_np, dev: torch.device):
     rng = np.random.default_rng(5)
     images = pink_images(rng, [(192, 256), (176, 248)])
@@ -573,16 +619,7 @@ def phase_inference_vs_cpu(templates_np, dev: torch.device):
     ec = EvalConfig(scales=(-1, 0, 1))
     gpu = PyramidDetector(model, templates_np, DetectorConfig(), ec, device=dev)
     cpu = PyramidDetector(copy.deepcopy(model).cpu(), templates_np, DetectorConfig(), ec, device="cpu")
-    got, want = gpu.detect_batch(images), cpu.detect_batch(images)
-    out = {"pairs": 0, "unpaired": 0, "max_box_err_px": 0.0, "max_score_err": 0.0}
-    for g, w in zip(got, want):
-        check(g.shape[1] == 5 and np.isfinite(g).all() and len(w) > 20, f"card output {g.shape}, CPU {w.shape}")
-        p, u, be, se = match_detections(g, w)
-        check(p >= 0.98 * max(len(g), len(w)), f"only {p} of {len(g)}/{len(w)} detections paired")
-        out["pairs"] += p
-        out["unpaired"] += u
-        out["max_box_err_px"] = max(out["max_box_err_px"], be)
-        out["max_score_err"] = max(out["max_score_err"], se)
+    out = compare_with_cpu(gpu.detect_batch(images), cpu.detect_batch(images))
     print(f"pyramid card vs CPU, ResNet-101 fp32, 2 images ~192x256, scales (-1, 0, 1): "
           f"{out['pairs']} detections paired, {out['unpaired']} unpaired near-ties, max box error "
           f"{out['max_box_err_px']:.3g} px, max score error {out['max_score_err']:.3g}", flush=True)
@@ -681,22 +718,11 @@ class MemoryDataset:
         return self.items[idx]
 
 
-def phase_sweep_and_service(calibrated: TinyFacesDetector, templates_np, dev: torch.device):
-    import shutil
-
-    rng = np.random.default_rng(7)
-    sizes = [(300, 400)] * 24 + [(480, 360)] * 24 + [(200, 300)] * 16  # 3 buckets
-    items = [(im, f"{i % 4}--Event{i % 4}/smoke_{i}.jpg")
-             for i, im in enumerate(pink_images(rng, sizes))]
-    out_dir = ROOT / "build" / "chip_smoke" / "val_results"
-    shutil.rmtree(out_dir, ignore_errors=True)
-    bf16 = TinyFacesDetector(dtype=torch.bfloat16).to(dev)
-    bf16.load_state_dict(calibrated.state_dict())
-    det = PyramidDetector(bf16, templates_np, DetectorConfig(), EvalConfig(), device=dev)
-    evaluate_model.run(det, MemoryDataset(items), 0.03, 0.3, "val", results_dir=out_dir,
-                       eval_batch=32, workers=4)
+def check_result_tree(out_dir: Path, n: int) -> tuple[list, int]:
+    """The sweep's WIDER result files: n of them, each a header and rows of
+    four integers and a score. Returns (files, detections)."""
     files = sorted(out_dir.glob("*/*.txt"))
-    check(len(files) == len(items), f"{len(files)} result files for {len(items)} images")
+    check(len(files) == n, f"{len(files)} result files for {n} images")
     n_dets = 0
     for f in files:
         lines = f.read_text().splitlines()
@@ -706,15 +732,15 @@ def phase_sweep_and_service(calibrated: TinyFacesDetector, templates_np, dev: to
             check(len(v) == 5 and all(x.lstrip("-").isdigit() for x in v[:4]), f"{f}: row {row!r}")
             float(v[4])
         n_dets += int(lines[1])
-    ph = evaluate_model.run.last_phases
-    print(f"sweep: {len(files)} result files, {n_dets} detections, {ph['images_per_sec']:.2f} img/s "
-          f"over {ph['wall']:.2f} s (bf16, 3 buckets, eval batch 32, first batch included)", flush=True)
+    return files, n_dets
 
-    # Service: fp32, so the batches it forms give detect_batch's results.
-    fp32 = PyramidDetector(calibrated, templates_np, DetectorConfig(), EvalConfig(), device=dev)
-    reqs = pink_images(rng, [(192, 256), (300, 400)] * 8)
-    want = [fp32.detect_batch([im])[0] for im in reqs]
-    svc = DetectionService(fp32, max_batch=8, max_delay_ms=20)
+
+def serve(det: PyramidDetector, reqs: list) -> tuple[int, int]:
+    """DetectionService over `det` answering `reqs` from 4 threads, each
+    answer held to detect_batch's of that request alone. Returns (pairs,
+    unpaired near-ties)."""
+    want = [det.detect_batch([r])[0] for r in reqs]
+    svc = DetectionService(det, max_batch=8, max_delay_ms=20)
     futures = [None] * len(reqs)
 
     def client(t):
@@ -736,6 +762,31 @@ def phase_sweep_and_service(calibrated: TinyFacesDetector, templates_np, dev: to
         p, u, _, _ = match_detections(g, w)
         check(len(w) > 0 and p >= 0.98 * max(len(g), len(w)), f"service {g.shape} vs detect_batch {w.shape}")
         pairs, unpaired = pairs + p, unpaired + u
+    return pairs, unpaired
+
+
+def phase_sweep_and_service(calibrated: TinyFacesDetector, templates_np, dev: torch.device):
+    import shutil
+
+    rng = np.random.default_rng(7)
+    sizes = [(300, 400)] * 24 + [(480, 360)] * 24 + [(200, 300)] * 16  # 3 buckets
+    items = [(im, f"{i % 4}--Event{i % 4}/smoke_{i}.jpg")
+             for i, im in enumerate(pink_images(rng, sizes))]
+    out_dir = ROOT / "build" / "chip_smoke" / "val_results"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    bf16 = TinyFacesDetector(dtype=torch.bfloat16).to(dev)
+    bf16.load_state_dict(calibrated.state_dict())
+    det = PyramidDetector(bf16, templates_np, DetectorConfig(), EvalConfig(), device=dev)
+    evaluate_model.run(det, MemoryDataset(items), 0.03, 0.3, "val", results_dir=out_dir,
+                       eval_batch=32, workers=4)
+    files, n_dets = check_result_tree(out_dir, len(items))
+    ph = evaluate_model.run.last_phases
+    print(f"sweep: {len(files)} result files, {n_dets} detections, {ph['images_per_sec']:.2f} img/s "
+          f"over {ph['wall']:.2f} s (bf16, 3 buckets, eval batch 32, first batch included)", flush=True)
+
+    # Service: fp32, so the batches it forms give detect_batch's results.
+    fp32 = PyramidDetector(calibrated, templates_np, DetectorConfig(), EvalConfig(), device=dev)
+    pairs, unpaired = serve(fp32, pink_images(rng, [(192, 256), (300, 400)] * 8))
     print(f"service: 16 requests from 4 threads, 2 buckets: {pairs} detections equal detect_batch's, "
           f"{unpaired} unpaired near-ties", flush=True)
     return {"sweep_img_per_s": ph["images_per_sec"], "sweep_files": len(files),
@@ -761,12 +812,17 @@ CROWDS = (5, 30)  # images holding ~1000 faces of 10-20 px
 
 def write_train_tree(out_dir: Path, rng, n: int = 48) -> tuple[Path, list]:
     """n 1/f-spectrum images at WIDER sizes and their WIDER-format
-    annotation file: 1-40 faces of 10-300 px per image, ~1000 faces of
-    10-20 px in the crowd images."""
+    annotation file (train_annotations)."""
     images = pink_images(rng, [TRAIN_TREE_SIZES[i % 3] for i in range(n)])
+    return train_annotations(out_dir, rng, [im.shape[:2] for im in images]), images
+
+
+def train_annotations(out_dir: Path, rng, sizes: list) -> Path:
+    """The WIDER-format annotation file of images train_{i}.jpg of `sizes`:
+    1-40 faces of 10-300 px per image, ~1000 faces of 10-20 px in the crowd
+    images."""
     lines = []
-    for i, im in enumerate(images):
-        h, w = im.shape[:2]
+    for i, (h, w) in enumerate(sizes):
         if i in CROWDS:
             k = int(rng.integers(950, 1050))
             fw = rng.uniform(10, 20, k)
@@ -780,7 +836,7 @@ def write_train_tree(out_dir: Path, rng, n: int = 48) -> tuple[Path, list]:
                   for a, b, c, d in zip(x1, y1, fw, fh)]
     ann = out_dir / "wider_face_train_bbx_gt.txt"
     ann.write_text("\n".join(lines) + "\n")
-    return ann, images
+    return ann
 
 
 def step_records(path: Path) -> tuple[list, list]:
@@ -905,6 +961,318 @@ def phase_train_cli(templates_np, dev: torch.device, name: str) -> tuple[dict, i
     return result, launches
 
 
+# --- the jpegdct wire: phases 9-14 ----------------------------------------
+
+FIXTURES = ROOT / "tests" / "torch_jpeg"
+
+
+def load_fixtures() -> dict:
+    """{name: (JPEG bytes, manifest entry)} of the committed fixtures."""
+    manifest = json.loads((FIXTURES / "manifest.json").read_text())
+    return {name: ((FIXTURES / name).read_bytes(), entry) for name, entry in manifest.items()}
+
+
+def in_bucket(fixtures: dict, bucket: tuple) -> list:
+    """The bytes of the baseline fixtures whose canvas bucket is `bucket`."""
+    return [data for data, e in fixtures.values()
+            if e["kind"] != "progressive" and (_round_up(e["h"]), _round_up(e["w"])) == bucket]
+
+
+def phase_jpeg_fixtures(fixtures: dict) -> dict:
+    """Phase 9: every fixture decoded here, its coefficients and quant
+    tables against the JAX package's checksums; the progressive file
+    refused naming its sampling with PIL blocked, and transcoded where PIL
+    is installed."""
+    from tests.torch_jpeg.make_fixtures import coef_sha256
+
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    def refusal_without_pil(data: bytes) -> str:
+        saved = sys.modules.get("PIL")
+        sys.modules["PIL"] = None  # `from PIL import Image` now raises ImportError
+        try:
+            jpegdct.parse_jpeg_dct(data)
+        except jpegdct.TranscodeUnavailable as err:
+            return str(err)
+        finally:
+            if saved is None:
+                del sys.modules["PIL"]
+            else:
+                sys.modules["PIL"] = saved
+        raise AssertionError("a progressive file decoded without PIL")
+
+    decode_ms = {}
+    for name, (data, e) in fixtures.items():
+        if e["kind"] == "progressive":
+            check(jpegdct.jpeg_dims(data) is None, f"{name}: the native decoder took a progressive file")
+            err = refusal_without_pil(data)
+            check("progressive" in err and "sampling=" in err and "needs PIL" in err, f"{name}: error {err}")
+            if have_pil:
+                n = jpegdct.transcode_count()
+                d = jpegdct.parse_jpeg_dct(data)
+                check(jpegdct.transcode_count() == n + 1 and (d.h, d.w) == (e["h"], e["w"]),
+                      f"{name}: transcode")
+            continue
+        check(jpegdct.jpeg_dims(data) == (e["h"], e["w"]), f"{name}: header dims")
+        t0 = time.perf_counter()
+        d = jpegdct.parse_jpeg_dct(data)
+        decode_ms[name] = 1000.0 * (time.perf_counter() - t0)
+        check(coef_sha256(d) == e["coef_sha256"], f"{name}: coefficients differ from the JAX package's")
+    print(f"jpeg fixtures: {len(decode_ms)} files decoded to the JAX package's coefficients, the "
+          f"progressive one refused without PIL ({'and transcoded with it, PIL installed' if have_pil else 'PIL not installed'}); "
+          f"entropy decode {min(decode_ms.values()):.1f}-{max(decode_ms.values()):.1f} ms a file "
+          f"(one thread)", flush=True)
+    return {"pil": have_pil, "decoded": len(decode_ms), "entropy_decode_ms": decode_ms}
+
+
+def phase_unpack_vs_cpu(fixtures: dict, dev: torch.device) -> dict:
+    """Phase 10: the wire's reconstruction on the card against the CPU on
+    the fixtures of the 768x1024 bucket, entered with TF32 on: planes within
+    1e-3 px, normalized RGB within 6e-5 (1e-3 px through the colour
+    transform)."""
+    data = in_bucket(fixtures, (768, 1024))
+    b = len(data)
+    wire = torch.from_numpy(jpegdct.pack_dct_batch(data, 768, 1024)["_wire"])
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        fields = [jpeg_ops.wire_fields(w, 768, 1024) for w in (wire, wire.to(dev))]
+        px_err = 0.0
+        for p, nh, nw, z in (("y", 96, 128, jpegdct.Z_KEEP_Y), ("u", 48, 64, jpegdct.Z_KEEP_C),
+                             ("v", 48, 64, jpegdct.Z_KEEP_C)):
+            q = "q_y" if p == "y" else "q_c"
+            want, got = (jpeg_ops.reconstruct_plane_dense(
+                f[f"{p}_dc"], f[f"{p}_ac"].reshape(b, nh * nw, z), f[f"{p}_esc_idx"],
+                f[f"{p}_esc_val"], f[q], nbh=nh, nbw=nw) for f in fields)
+            px_err = max(px_err, (got.cpu() - want).abs().max().item())
+        want = jpeg_ops.dct_batch_to_normalized({"_wire": wire}, 768, 1024)
+        got = jpeg_ops.dct_batch_to_normalized({"_wire": wire.to(dev)}, 768, 1024).cpu()
+        norm_err = (got - want).abs().max().item()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    check(px_err <= 1e-3, f"card planes differ from the CPU's by {px_err} px with TF32 on")
+    check(norm_err <= 6e-5, f"card normalized RGB differs from the CPU's by {norm_err} with TF32 on")
+    print(f"jpegdct reconstruction card vs CPU, {b} images 768x1024, TF32 on: planes within "
+          f"{px_err:.3g} px, normalized RGB within {norm_err:.3g}", flush=True)
+    return {"images": b, "max_plane_err_px": px_err, "max_normalized_err": norm_err}
+
+
+def phase_dct_pyramid_vs_cpu(calibrated: TinyFacesDetector, templates_np, fixtures: dict,
+                             dev: torch.device) -> dict:
+    """Phase 11: phase 5 on the jpegdct wire, from the bytes of the
+    grayscale and the odd-sized fixtures."""
+    data = [fixtures[n][0] for n in ("gray_240x320_q85.jpg", "odd_197x263_q90.jpg")]
+    ec = EvalConfig(scales=(-1, 0, 1))
+    gpu = PyramidDetector(calibrated, templates_np, DetectorConfig(), ec, device=dev, transfer="jpegdct")
+    cpu = PyramidDetector(copy.deepcopy(calibrated).cpu(), templates_np, DetectorConfig(), ec,
+                          device="cpu", transfer="jpegdct")
+    out = compare_with_cpu(gpu.detect_batch(data), cpu.detect_batch(data))
+    print(f"jpegdct pyramid card vs CPU, ResNet-101 fp32, fixtures 240x320 gray and 197x263, scales "
+          f"(-1, 0, 1): {out['pairs']} detections paired, {out['unpaired']} unpaired near-ties, max "
+          f"box error {out['max_box_err_px']:.3g} px, max score error {out['max_score_err']:.3g}",
+          flush=True)
+    return out
+
+
+def phase_dct_full_width(calibrated: TinyFacesDetector, templates_np, fixtures: dict,
+                         dev: torch.device, name: str) -> dict:
+    """Phase 12: phase 6's bf16 pyramid on the jpegdct wire, from the bytes
+    of the 768x1024-bucket fixtures: img/s, the CUDA-event split with
+    "unpack", the host's pack per batch and per image, peak memory."""
+    data = in_bucket(fixtures, (768, 1024))
+    b = 32
+    images = [data[i % len(data)] for i in range(b)]
+    model = TinyFacesDetector(dtype=torch.bfloat16).to(dev)
+    model.load_state_dict(calibrated.state_dict())
+    det = PyramidDetector(model, templates_np, DetectorConfig(), EvalConfig(), device=dev,
+                          transfer="jpegdct")
+    pack_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        packed = det.pack_inputs(images)
+        pack_ms.append(1000.0 * (time.perf_counter() - t0))
+    one_ms = []
+    for d in data:  # one image on one thread: the rate a pack thread keeps
+        t0 = time.perf_counter()
+        jpegdct.pack_dct_batch([d], 768, 1024)
+        one_ms.append(1000.0 * (time.perf_counter() - t0))
+    for _ in range(2):
+        det._fetch(det.detect_batch_async(packed))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    n = 3
+    t0 = time.perf_counter()
+    for _ in range(n):
+        outs = det._fetch(det.detect_batch_async(packed))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    for o in outs:
+        check(o.ndim == 2 and o.shape[1] == 5 and np.isfinite(o).all(), f"jpegdct bf16: output {o.shape}")
+    start = torch.cuda.Event(enable_timing=True)
+    det.trace = [("start", start)]
+    start.record()
+    det._fetch(det.detect_batch_async(packed))
+    split = split_ms(det.trace)
+    det.trace = None
+    lat = []
+    for i in range(7):
+        t0 = time.perf_counter()
+        det.detect_batch(images[i:i + 1])
+        lat.append(1000.0 * (time.perf_counter() - t0))
+    # The unpack alone, by stage, against the rgb wire's normalize of a
+    # canvas of the same shape (each as the pyramid runs it, to NCHW bf16).
+    fields = jpeg_ops.wire_fields(packed.host.to(dev), 768, 1024)
+    planes = {}
+
+    def plane(p, nh, nw, z):
+        planes[p] = jpeg_ops.reconstruct_plane_dense(
+            fields[f"{p}_dc"], fields[f"{p}_ac"].reshape(b, nh * nw, z), fields[f"{p}_esc_idx"],
+            fields[f"{p}_esc_val"], fields["q_y" if p == "y" else "q_c"], nbh=nh, nbw=nw)
+
+    canvas = torch.randint(0, 256, (b, 768, 1024, 3), dtype=torch.uint8, device=dev)
+    unpack_ms = {
+        "luma_plane": cuda_ms(lambda: plane("y", 96, 128, jpegdct.Z_KEEP_Y)),
+        "chroma_planes": cuda_ms(lambda: [plane(p, 48, 64, jpegdct.Z_KEEP_C) for p in "uv"]),
+        "upsample_colour_normalize": cuda_ms(lambda: jpeg_ops.ycc_planes_to_normalized(
+            planes["y"], planes["u"], planes["v"], dtype=torch.bfloat16).permute(0, 3, 1, 2).contiguous()),
+        "whole": cuda_ms(lambda: jpeg_ops.dct_batch_to_normalized(
+            fields, 768, 1024, dtype=torch.bfloat16).permute(0, 3, 1, 2).contiguous()),
+        "rgb_normalize": cuda_ms(lambda: normalize_images(canvas, dtype=torch.bfloat16)
+                                 .permute(0, 3, 1, 2).contiguous()),
+    }
+    del fields, planes, canvas
+    r = {"img_per_s": n * b / wall, "batch_ms": 1000.0 * wall / n,
+         "pack_ms_per_batch": float(np.median(pack_ms)), "pack_ms_runs": pack_ms,
+         "pack_threads": jpegdct.PACK_THREADS, "pack_ms_per_image_one_thread": one_ms,
+         "wire_bytes_per_image": packed.host.shape[1], "batch1_ms": float(np.median(lat[2:])),
+         "peak_gib": peak, "split_ms": {k: round(v, 3) for k, v in split.items()},
+         "unpack_alone_ms": unpack_ms, "dets_per_image": float(np.mean([len(o) for o in outs]))}
+    print(f"pyramid jpegdct bf16 ResNet-101, 768x1024 bucket, batch {b} from {len(data)} fixtures' "
+          f"bytes: {r['img_per_s']:.2f} img/s ({r['batch_ms']:.1f} ms/batch over {n} batches after 2 "
+          f"warm-up), host pack {r['pack_ms_per_batch']:.1f} ms/batch on {jpegdct.PACK_THREADS} "
+          f"threads ({min(one_ms):.1f}-{max(one_ms):.1f} ms an image on one), wire "
+          f"{r['wire_bytes_per_image']} B/image, batch-1 latency {r['batch1_ms']:.2f} ms (pack "
+          f"included), peak memory {peak:.2f} GiB ({name})", flush=True)
+    print(f"  CUDA-event split of one batch (ms): {json.dumps(r['split_ms'])}", flush=True)
+    print(f"  unpack alone, CUDA events, median of 20 (ms): {json.dumps(unpack_ms)}", flush=True)
+    del model, det
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_dct_sweep_and_service(calibrated: TinyFacesDetector, templates_np, fixtures: dict,
+                                dev: torch.device) -> dict:
+    """Phase 13: evaluate_model.run with the CLI's default wire over a WIDER
+    val tree of the baseline fixtures' files (3 buckets), and the service
+    answering requests of JPEG bytes and a DCTImage."""
+    transfer = evaluate_model.arguments(["ann.txt"]).transfer
+    check(transfer == "jpegdct", f"the sweep CLI's default wire is {transfer}")
+    out = ROOT / "build" / "chip_smoke" / "val_jpeg"
+    shutil.rmtree(out, ignore_errors=True)
+    names = [n for n, (_, e) in fixtures.items() if e["kind"] != "progressive"]
+    lines = []
+    for i in range(40):
+        rel = f"{i % 4}--Event{i % 4}/jpeg_{i}.jpg"
+        path = out / "WIDER_val" / "images" / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(fixtures[names[i % len(names)]][0])
+        lines += [rel, "1", "10 10 40 40 0 0 0 0 0 0"]
+    ann = out / "wider_face_val_bbx_gt.txt"
+    ann.write_text("\n".join(lines) + "\n")
+    dataset = WIDERFace(ann, templates_np, split="val", dataset_root=out)
+    bf16 = TinyFacesDetector(dtype=torch.bfloat16).to(dev)
+    bf16.load_state_dict(calibrated.state_dict())
+    det = PyramidDetector(bf16, templates_np, DetectorConfig(), EvalConfig(), device=dev, transfer=transfer)
+    evaluate_model.run(det, dataset, 0.03, 0.3, "val", results_dir=out / "val_results", eval_batch=32,
+                       workers=4)
+    files, n_dets = check_result_tree(out / "val_results", len(dataset))
+    ph = evaluate_model.run.last_phases
+    print(f"sweep jpegdct: {len(files)} result files from JPEG files, {n_dets} detections, "
+          f"{ph['images_per_sec']:.2f} img/s over {ph['wall']:.2f} s (bf16, 3 buckets, eval batch 32, "
+          f"first batch included; pack {ph['pack']:.2f} s in all)", flush=True)
+    del det, bf16
+
+    fp32 = PyramidDetector(calibrated, templates_np, DetectorConfig(), EvalConfig(), device=dev,
+                           transfer="jpegdct")
+    reqs = [fixtures[n][0] for n in ("gray_240x320_q85.jpg", "odd_197x263_q90.jpg")] * 8
+    reqs[3] = jpegdct.parse_jpeg_dct(reqs[3])
+    pairs, unpaired = serve(fp32, reqs)
+    print(f"service jpegdct: 16 requests of JPEG bytes (one a DCTImage) from 4 threads: {pairs} "
+          f"detections equal detect_batch's, {unpaired} unpaired near-ties", flush=True)
+    return {"sweep_img_per_s": ph["images_per_sec"], "sweep_files": len(files),
+            "sweep_pack_s": ph["pack"], "service_pairs": pairs, "service_unpaired": unpaired}
+
+
+def phase_train_cli_jpegdct(templates_np, fixtures: dict, dev: torch.device, name: str) -> tuple[dict, int]:
+    """Phase 14: `main.run --transfer jpegdct` over a WIDER train tree whose
+    48 files are the fixtures at WIDER sizes, annotated as phase 8's."""
+    out = ROOT / "build" / "chip_smoke" / "train_cli_jpegdct"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    by_size: dict = {}
+    for data, e in fixtures.values():
+        if e["kind"] == "baseline" and (e["h"], e["w"]) in TRAIN_TREE_SIZES:
+            by_size.setdefault((e["h"], e["w"]), []).append(data)
+    sizes = [TRAIN_TREE_SIZES[i % 3] for i in range(48)]
+    ann = train_annotations(out, np.random.default_rng(9), sizes)
+    for i, hw in enumerate(sizes):
+        path = out / "WIDER_train" / "images" / f"{i % 4}--Event{i % 4}" / f"train_{i}.jpg"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(by_size[hw][(i // 3) % len(by_size[hw])])
+    tc = TrainConfig()
+
+    overflow.reset()
+    samples = native.counters["samples"]
+    assignment_kernel.launch_count = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    args = train_cli.arguments([str(ann), str(ann), "--dataset-root", str(out), "--device", str(dev),
+                                "--transfer", "jpegdct", "--epochs", "2", "--save-every", "2",
+                                "--metrics-log", str(out / "run.jsonl")])
+    # TF32 on, as cuDNN has it in a fresh process: the fp32 CLI must turn it off.
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    (out / "run").mkdir()
+    t0 = time.perf_counter()
+    with contextlib.chdir(out / "run"):
+        trainer = train_cli.run(args)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = assignment_kernel.launch_count
+    peak = torch.cuda.max_memory_allocated(dev)
+    dropped = overflow.snapshot()["dropped_boxes"]
+
+    steps = 2 * (48 // tc.batch_size)
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "the fp32 CLI left TF32 on")
+    check(trainer.step == steps and launches == steps, f"{launches} kernel launches in {trainer.step} steps")
+    check(native.counters["samples"] == samples, "the C++ engine augmented samples of the jpegdct wire")
+    check(trainer.skipped_steps == 0, f"{trainer.skipped_steps} non-finite steps")
+    check((out / "run" / "weights" / "checkpoint_2").is_file(), "checkpoint_2 missing")
+    recs, ends = step_records(out / "run.jsonl")
+    check(len(recs) == steps and all(np.isfinite([r["loss_cls_step"], r["loss_reg_step"]]).all()
+                                     for r in recs), "per-step losses")
+    check(len(ends) == 2 and ends[-1]["gt_dropped_boxes"] == dropped and dropped > 0,
+          f"epoch_end gt_dropped_boxes {[r['gt_dropped_boxes'] for r in ends]}, overflow counters {dropped}")
+    wait = trainer.loader_wait_ms
+    del trainer
+    img_s = [r["images_per_sec"] for r in ends]
+    result = {"card": name, "steps": steps, "batch": tc.batch_size,
+              "ms_per_step": [1000.0 * tc.batch_size / v for v in img_s], "img_per_s": img_s,
+              "loader_wait_ms_epoch1_first": wait[0],
+              "loader_wait_ms_epoch1_after_first": float(np.mean(wait[1:])),
+              "loader_wait_ms_epoch1_max_after_first": float(np.max(wait[1:])),
+              "peak_gib": peak / 2**30, "gt_dropped_boxes": dropped, "wall_s": wall}
+    print(f"train CLI jpegdct ResNet-101 B={tc.batch_size} 500x500 fp32, 48 JPEG files: "
+          f"{[round(v, 2) for v in result['ms_per_step']]} ms/step and {[round(v, 2) for v in img_s]} "
+          f"img/s per epoch (StepTimer, step 0 excluded), loader wait in epoch 1 (coefficients "
+          f"cached) {result['loader_wait_ms_epoch1_after_first']:.3f} ms/step after its first "
+          f"({wait[0]:.1f} ms), peak memory {result['peak_gib']:.2f} GiB, {dropped} GT boxes dropped, "
+          f"K1 launched {launches} times in {steps} steps, {wall:.1f} s in all ({name})", flush=True)
+    return result, launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", type=Path, default=None,
@@ -922,14 +1290,14 @@ def main() -> None:
           flush=True)
 
     t0 = time.perf_counter()
-    builds = [assignment_kernel._kernel, native.load]
+    builds = [assignment_kernel._kernel, native.load, jpegdct.load]
     if args.against is not None:
         builds.append(lambda: build_against(args.against))
     with ThreadPoolExecutor(len(builds)) as pool:  # nvcc and the host compiler side by side
         built = [f.result() for f in [pool.submit(build) for build in builds]]
-    against = built[2] if args.against is not None else None
-    print(f"build: dense_assignment.cu (nvcc) and tinyfaces_native.cpp (host C++) compiled and "
-          f"loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    against = built[3] if args.against is not None else None
+    print(f"build: dense_assignment.cu (nvcc), tinyfaces_native.cpp and jpeg_dct.cpp (host C++) "
+          f"compiled and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
 
     templates_np = load_templates()
     templates = torch.tensor(templates_np, dtype=torch.float32, device=dev)
@@ -942,19 +1310,28 @@ def main() -> None:
     model, vs_cpu = phase_inference_vs_cpu(templates_np, dev)
     full = phase_full_width(model, templates_np, dev, name)
     served = phase_sweep_and_service(model, templates_np, dev)
+    fixtures = load_fixtures()
+    dct = {"card": name, "fixtures": phase_jpeg_fixtures(fixtures),
+           "unpack_vs_cpu": phase_unpack_vs_cpu(fixtures, dev),
+           "gpu_vs_cpu": phase_dct_pyramid_vs_cpu(model, templates_np, fixtures, dev),
+           "bf16": phase_dct_full_width(model, templates_np, fixtures, dev, name),
+           **phase_dct_sweep_and_service(model, templates_np, fixtures, dev)}
     del model
     torch.cuda.empty_cache()
     train_cli_result, cli_launches = phase_train_cli(templates_np, dev, name)
+    dct["train_cli"], dct_launches = phase_train_cli_jpegdct(templates_np, fixtures, dev, name)
     print(f"all phases passed in {time.perf_counter() - start:.1f} s ({name})", flush=True)
     print(json.dumps({"inference": {"card": name, "gpu_vs_cpu": vs_cpu, **full, **served}}))
     print(json.dumps({"train_cli": train_cli_result}))
+    print(json.dumps({"jpegdct": dct}))
     print(json.dumps({"kernels": [{
         "name": "dense_assignment_reductions",
         "route": "cuda",
         "source": "tinyfaces_tpu_torch/csrc/dense_assignment.cu",
         "replaces": "tinyfaces_tpu/ops/pallas_assignment.py:209",
-        "launches": launches + cli_launches,
-        "launches_by_path": {"train_epoch": launches, "train_cli": cli_launches},
+        "launches": launches + cli_launches + dct_launches,
+        "launches_by_path": {"train_epoch": launches, "train_cli": cli_launches,
+                             "train_cli_jpegdct": dct_launches},
         "max_abs_err": kres["max_abs_err"],
         **kres[f"G{DetectorConfig().max_gt}"],
         "library_ms": None,  # no single PyTorch call computes it

@@ -112,17 +112,16 @@ def test_argument_surface_matches_jax(tmp_path):
     ours = vars(cli.arguments(["val.txt"]))
     theirs = vars(jax_cli.arguments(["val.txt"]))
     assert ours.pop("device") == "cuda"  # the port's own flag
-    assert ours.pop("transfer") == "rgb" and theirs.pop("transfer") == "jpegdct"
+    assert ours["transfer"] == theirs["transfer"] == "jpegdct"
     assert ours == theirs
     flags = ["--bf16", "--fp32", "--eval-batch", "8", "--host-resize", "--template-pruning",
              "natural", "--num-processes", "2", "--process-id", "1", "--arch", "resnet50"]
-    mine = vars(cli.arguments(["v.txt", *flags]))
-    for k, v in vars(jax_cli.arguments(["v.txt", *flags])).items():
-        if k != "transfer":
-            assert mine[k] == v
+    mine = vars(cli.arguments(["v.txt", *flags, "--transfer", "rgb"]))
+    for k, v in vars(jax_cli.arguments(["v.txt", *flags, "--transfer", "rgb"])).items():
+        assert mine[k] == v
 
     ann = _tree(tmp_path)
-    for extra, item in ((["--transfer", "jpegdct"], "item 10"), (["--transfer", "yuv420"], "item 15"),
+    for extra, item in ((["--transfer", "jpegdct4"], "item 15"), (["--transfer", "yuv420"], "item 15"),
                         (["--resample", "pil"], "item 7"), (["--data-parallel"], "item 13"),
                         (["--shard", "spatial"], "item 13"), (["--bf16", "--fp32"], "exclusive")):
         with pytest.raises(SystemExit, match=item):

@@ -182,7 +182,9 @@ def test_bf16_pyramid_runs_and_stays_close(pair):
 
 def test_unported_options_raise():
     model = TinyFacesDetector(stage_sizes=TINY)
-    for kw, item in ((dict(transfer="jpegdct"), "item 10"), (dict(transfer="yuv420"), "item 15"),
+    assert evaluation.PyramidDetector(model, TEMPLATES, device="cpu", transfer="jpegdct").transfer \
+        == "jpegdct"  # ported in tests/test_torch_jpegdct_eval.py
+    for kw, item in ((dict(transfer="yuv420"), "item 15"),
                      (dict(transfer="jpegdct4"), "item 15"), (dict(mesh=object()), "item 13"),
                      (dict(shard="spatial"), "item 13"),
                      (dict(ec=EvalConfig(resample="pil")), "item 7")):

@@ -33,6 +33,11 @@ for name in names:
     importlib.import_module(name)
 banned = ("jax", "tinyfaces_tpu")
 assert not any(k.split(".")[0] in banned for k, v in sys.modules.items() if v is not None)
+# the jpegdct wire's modules, and its decoder's bindings, load without PIL
+from tinyfaces_tpu_torch.data import jpegdct
+assert {"tinyfaces_tpu_torch.data.jpegdct", "tinyfaces_tpu_torch.data.dct_train",
+        "tinyfaces_tpu_torch.ops.jpeg"} <= set(names)
+assert jpegdct.jpeg_dims(open("tests/torch_jpeg/odd_197x263_q90.jpg", "rb").read()) == (197, 263)
 print(len(names))
 """
 
@@ -41,7 +46,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 36  # chip_smoke + every module of the package
+    assert int(out.stdout.split()[-1]) >= 39  # chip_smoke + every module of the package
 
 
 @pytest.mark.parametrize("name", ["ReceptiveField", "DetectorConfig", "TrainConfig", "EvalConfig"])

@@ -155,7 +155,7 @@ def test_sigterm_checkpoints_and_stops(tree, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [(["--transfer", "yuv420"], "item 15"),
-                                        (["--transfer", "jpegdct"], "item 11"),
+                                        (["--transfer", "jpegdct", "--num-processes", "2"], "item 13"),
                                         (["--num-processes", "2"], "item 13"),
                                         (["--coordinator-address", "localhost:1234"], "item 13")])
 def test_unported_options_exit(tree, extra, item):

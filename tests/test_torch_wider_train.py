@@ -132,7 +132,8 @@ def test_factory_and_unported_wires(tmp_path):
     assert dataset.split == "train" and dataset.cfg == CFG and templates.shape == (25, 5)
     item = dataset[2]
     assert item["image"].shape == (128, 128, 3) and item["gt_boxes"].shape == (8, 4)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        dataset.get_dct(0)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        dataset.getitem_train_dct(0)
+    # the jpegdct wire reads the same files (tests/test_torch_dct_train.py)
+    data, path = dataset.get_dct(0)
+    assert data == dataset.image_path(0).read_bytes() and path == dataset.samples[0].img_path
+    item = dataset.getitem_train_dct(2)
+    assert item["dct_wire"].shape == (713992,) and item["gt_boxes"].shape == (8, 4)

@@ -1,9 +1,12 @@
 """Threaded prefetching batch loaders with pinned host buffers.
 
-Port of tinyfaces_tpu/data/loader.py on the `rgb` wire, over any map-style
-dataset whose items are train-sample dicts in the format
-`WIDERFace.__getitem__` returns: image (H, W, 3) uint8, gt_boxes (G, 4)
-float32, gt_valid (G,) bool, paste_box (4,) float32, flip bool.
+Port of tinyfaces_tpu/data/loader.py, over any map-style dataset whose
+items are train-sample dicts in the format `WIDERFace.__getitem__` returns:
+image (H, W, 3) uint8, gt_boxes (G, 4) float32, gt_valid (G,) bool,
+paste_box (4,) float32, flip bool. With `pack="jpegdct"` the items come
+from `dataset.getitem_train_dct` instead: dct_wire (713,992,) uint8 and the
+device augmentation's aug_scale and aug_off in place of the image
+(data/dct_train.py).
 
 Worker threads load samples while the device runs the previous step;
 collated batches go through a bounded queue. The shuffle is a pure function
@@ -17,8 +20,8 @@ device each batch is collated into pinned host memory and copied with
 loader is. Each loader records the consumer's wait on the queue per batch
 (`wait_ms`): the host time a step waits for its input.
 
-Only the `rgb` wire (uint8 pixels) and one process are ported: the JAX
-loader's `pack` and `rank`/`world` have no counterpart here yet.
+One process only: the JAX loader's `rank`/`world` (ROADMAP item 13) and
+its `pack="yuv420"` (item 15) have no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -50,7 +53,12 @@ class PrefetchLoader:
     """Iterable over device batches of a map-style train dataset."""
 
     def __init__(self, dataset, batch_size: int, device: torch.device | str = "cuda",
-                 workers: int = 8, seed: int = 0, epoch: int = 0):
+                 workers: int = 8, seed: int = 0, epoch: int = 0, pack: str = "rgb"):
+        if pack == "yuv420":
+            raise ValueError("pack='yuv420' is not ported: ROADMAP item 15")
+        if pack not in ("rgb", "jpegdct"):
+            raise ValueError(f"unknown pack mode {pack!r}")
+        self.pack = pack
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -125,6 +133,10 @@ class PrefetchLoader:
             yield {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
 
     def __iter__(self) -> Iterator[dict]:
+        if self.pack == "jpegdct":
+            # no host pixel decode: entropy decode (C++, GIL-free, cached
+            # across epochs), coefficient crop and pack; the device augments
+            return self._device_batches(self.dataset.getitem_train_dct)
         return self._device_batches(self.dataset.__getitem__)
 
 
@@ -134,10 +146,15 @@ class NativePrefetchLoader(PrefetchLoader):
     the GIL, so decode and augmentation of different samples overlap). The
     dataset must be a train `WIDERFace` (samples, cfg, _decode). Seeds
     follow the JAX package's native loader: a base drawn from
-    SeedSequence((seed, epoch, 0xC0FFEE)), plus index * 0x9E3779B9."""
+    SeedSequence((seed, epoch, 0xC0FFEE)), plus index * 0x9E3779B9. With
+    pack="jpegdct" there are no pixels for the engine: the Python path
+    above runs, as in the JAX package."""
 
     def __iter__(self) -> Iterator[dict]:
         from tinyfaces_tpu_torch.data import native
+
+        if self.pack == "jpegdct":
+            return super().__iter__()
 
         native.load()  # build or raise before any worker starts
         epoch = self.epoch

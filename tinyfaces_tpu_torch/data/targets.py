@@ -1,8 +1,10 @@
 """Device-side batch preparation: normalization + GT target heatmaps.
 
-Port of tinyfaces_tpu/data/targets.py on the `rgb` wire. The batch's tensors
-already sit on the training device; the assignment reductions run there
-(the CUDA kernel on a GPU, the plain twin on the CPU).
+Port of tinyfaces_tpu/data/targets.py on the `rgb` and `jpegdct` wires. The
+batch's tensors already sit on the training device; the jpegdct wire's
+pixels are reconstructed and augmented there (`device_augment_dct`), and the
+assignment reductions run there (the CUDA kernel on a GPU, the plain twin
+on the CPU).
 """
 
 from __future__ import annotations
@@ -24,6 +26,104 @@ def normalize_images(images_u8: torch.Tensor, dtype=torch.float32) -> torch.Tens
     return (x - mean) / std
 
 
+def _taps(a: torch.Tensor, dim: int, start: int, stop: int, step: int = 1) -> torch.Tensor:
+    idx = [slice(None)] * a.dim()
+    idx[dim] = slice(start, stop, step)
+    return a[tuple(idx)]
+
+
+def _pil_downscale2_dim(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """PIL BILINEAR x0.5 along `dim`: taps [2i-1 .. 2i+2] with weights
+    [1/8, 3/8, 3/8, 1/8], edges clamped."""
+    n = a.shape[dim]
+    first, last = _taps(a, dim, 0, 1), _taps(a, dim, n - 1, n)
+    ap = torch.cat([first, a, last, last], dim)
+    out = (0.125 * _taps(ap, dim, 0, n, 2) + 0.375 * _taps(ap, dim, 1, n + 1, 2)
+           + 0.375 * _taps(ap, dim, 2, n + 2, 2) + 0.125 * _taps(ap, dim, 3, n + 3, 2))
+    # PIL drops out-of-image taps and renormalizes the rest (it does not
+    # clamp): out[0] = (.75a0 + .75a1 + .25a2)/1.75. Region row 0 is only
+    # consumed when it is the true image edge (crop at 0 => anchor at 0,
+    # data/dct_train.region_anchor), so the fix-up is exact; the last row is
+    # never consumed.
+    head = (0.75 * first + 0.75 * _taps(a, dim, 1, 2) + 0.25 * _taps(a, dim, 2, 3)) / 1.75
+    return torch.cat([head, _taps(out, dim, 1, out.shape[dim])], dim)
+
+
+def _pil_downscale2(x: torch.Tensor) -> torch.Tensor:
+    """Exact PIL BILINEAR x0.5 (the reference's Image.resize) of (B, H, W,
+    C) -> (B, H/2, W/2, C): a separable triangle filter in float (no uint8
+    re-quantization, a bounded deviation, see data/dct_train.py)."""
+    return _pil_downscale2_dim(_pil_downscale2_dim(x, 1), 2)
+
+
+def _pil_upscale2_dim(a: torch.Tensor, dim: int) -> torch.Tensor:
+    n = a.shape[dim]
+    ap = torch.cat([_taps(a, dim, 0, 1), a, _taps(a, dim, n - 1, n)], dim)
+    even = 0.25 * _taps(ap, dim, 0, n) + 0.75 * _taps(ap, dim, 1, n + 1)
+    odd = 0.75 * _taps(ap, dim, 1, n + 1) + 0.25 * _taps(ap, dim, 2, n + 2)
+    shape = list(a.shape)
+    shape[dim] *= 2
+    return torch.stack([even, odd], dim + 1).reshape(shape)
+
+
+def _pil_upscale2(x: torch.Tensor) -> torch.Tensor:
+    """Exact PIL BILINEAR x2 of (B, h, w, C) -> (B, 2h, 2w, C): out[2j] =
+    0.25 src[j-1] + 0.75 src[j], out[2j+1] = 0.75 src[j] + 0.25 src[j+1],
+    edges clamped."""
+    return _pil_upscale2_dim(_pil_upscale2_dim(x, 1), 2)
+
+
+def device_augment_dct(batch: dict, cfg: DetectorConfig, dtype=torch.float32) -> torch.Tensor:
+    """Device half of the jpegdct train wire (host half: data/dct_train.py):
+    reconstruct each sample's source region in float32 (ops/jpeg.py), then
+    the reference's resize, crop, paste and flip (wider_face.py:133-165),
+    driven by the host's draws (aug_scale, aug_off, paste_box, flip), so
+    the geometry is the host pixel path's exactly. Returns normalized (B,
+    ih, iw, 3) in `dtype`.
+
+    All three scale branches are computed for the whole batch and one is
+    selected per sample (the x0.5 and x2 filters are a few passes over the
+    region, small beside the step), so nothing waits on the host. The crop,
+    the paste's roll and the flip are one gather per branch."""
+    from tinyfaces_tpu_torch.data.dct_train import TRAIN_REGION, upsample_src
+    from tinyfaces_tpu_torch.data.wider_face import MEAN_PIXEL
+    from tinyfaces_tpu_torch.ops.jpeg import dct_batch_to_normalized
+
+    ih, iw = cfg.input_size
+    region = dct_batch_to_normalized({"_wire": batch["dct_wire"]}, TRAIN_REGION, TRAIN_REGION)
+    dev = region.device
+    branches = (_pil_downscale2(region), region,
+                _pil_upscale2(region[:, :upsample_src(ih), :upsample_src(iw)]))
+
+    b = region.shape[0]
+    pb = batch["paste_box"].to(torch.float32)
+    off = batch["aug_off"].to(torch.int64)
+    sid = batch["aug_scale"].to(torch.int64)
+    flip = batch["flip"].to(torch.bool)
+    rows = torch.arange(ih, device=dev)
+    cols = torch.where(flip[:, None], iw - 1 - torch.arange(iw, device=dev), torch.arange(iw, device=dev))
+    # The paste at (px, py) is a roll of the crop; the mask below paints the
+    # canvas fill wherever the rolled wrap-around lands outside the box.
+    src_r = torch.remainder(rows[None] - pb[:, 1:2].to(torch.int64), ih)  # (B, ih)
+    src_c = torch.remainder(cols - pb[:, 0:1].to(torch.int64), iw)  # (B, iw)
+    bi = torch.arange(b, device=dev)[:, None, None]
+    content = None
+    for s, x in enumerate(branches):
+        # a crop start clamped into the branch, as jax.lax.dynamic_slice
+        oy = off[:, 0:1].clamp(0, x.shape[1] - ih)
+        ox = off[:, 1:2].clamp(0, x.shape[2] - iw)
+        crop = x[bi, (oy + src_r)[:, :, None], (ox + src_c)[:, None, :]]
+        content = crop if content is None else torch.where((sid == s)[:, None, None, None], crop, content)
+
+    mean_pixel = torch.tensor(MEAN_PIXEL, dtype=torch.float32) / 255.0
+    fill = ((mean_pixel - torch.tensor(IMAGENET_MEAN)) / torch.tensor(IMAGENET_STD)).to(
+        dev, non_blocking=True)
+    rf, cf = rows.to(torch.float32)[None, :, None], cols.to(torch.float32)[:, None, :]
+    inside = ((rf >= pb[:, 1, None, None]) & (rf < pb[:, 3, None, None])
+              & (cf >= pb[:, 0, None, None]) & (cf < pb[:, 2, None, None]))
+    return torch.where(inside[..., None], content, fill).to(dtype)
+
+
 def build_targets(
     batch: dict,
     templates: torch.Tensor,
@@ -38,7 +138,11 @@ def build_targets(
     sty, stx = cfg.rf.stride
     rf = dict(ofx=float(ofx), ofy=float(ofy), stx=float(stx), sty=float(sty))
 
-    images = normalize_images(batch["image"])
+    if "dct_wire" in batch:
+        # jpegdct train wire: the source region's coefficients, augmented here
+        images = device_augment_dct(batch, cfg)
+    else:
+        images = normalize_images(batch["image"])
     templates = templates.to(images.device, torch.float32)
     pad_masks = compute_pad_mask(batch["paste_box"], templates, vsx=vsx, vsy=vsy,
                                  flip=batch["flip"], **rf)

@@ -22,12 +22,15 @@ with its own stream. Each train sample is a dict:
 
 Pixels are decoded by one method, `WIDERFace._decode`, so that a caller can
 hand in decoded arrays; Pillow is imported only there and in the x0.5/x2
-resize of the Python augmentation.
+resize of the Python augmentation. The `jpegdct` wire reads the JPEG bytes
+instead (`get_dct`, `getitem_train_dct`) and needs no Pillow for baseline
+4:2:0 or grayscale files (data/jpegdct.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from pathlib import Path
 from typing import List, NamedTuple, Optional
 
@@ -293,6 +296,8 @@ class WIDERFace:
         self.seed = seed
         self.epoch = 0
         self.debug = debug
+        self._dct_cache = None  # dct_train.CoefCache, made at first use
+        self._cache_lock = threading.Lock()
 
     def set_epoch(self, epoch: int) -> None:
         """Advance the augmentation stream: per-sample generators derive from
@@ -319,10 +324,27 @@ class WIDERFace:
             return np.asarray(im.convert("RGB"))
 
     def get_dct(self, idx: int):
-        raise NotImplementedError("the jpegdct eval wire is not ported: ROADMAP item 10")
+        """(raw JPEG bytes | DCTImage, img_path) for the jpegdct wire, with
+        no pixel decode: a file the fused C++ pack takes stays raw bytes
+        (decoded at pack time, data/jpegdct.pack_dct_batch); any other is
+        entropy-decoded here, through PIL's transcode where it needs one."""
+        from tinyfaces_tpu_torch.data.jpegdct import as_wire_input
+
+        return as_wire_input(self.image_path(idx).read_bytes()), self.samples[idx].img_path
 
     def getitem_train_dct(self, idx: int) -> dict:
-        raise NotImplementedError("the jpegdct train wire is not ported: ROADMAP item 11")
+        """Train sample on the jpegdct wire (data/dct_train.py): the DCT
+        coefficients of the augmentation's source region; pixels never
+        decode on the host. The entropy-decoded coefficients are cached per
+        process, so epochs after the first only crop and pack."""
+        from tinyfaces_tpu_torch.data import dct_train
+
+        with self._cache_lock:
+            if self._dct_cache is None:
+                self._dct_cache = dct_train.CoefCache()
+        dct = self._dct_cache.get(idx, lambda: dct_train.decode_dct(self.image_path(idx).read_bytes()))
+        return dct_train.train_item_dct(dct, self.samples[idx].bboxes.copy(), self.cfg,
+                                        self.sample_rng(idx))
 
     def get_all_bboxes(self) -> np.ndarray:
         """All GT boxes, the input of template clustering (reference

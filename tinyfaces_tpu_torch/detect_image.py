@@ -6,14 +6,16 @@
 
 Loads the templates and the checkpoint, detects at a single scale
 (scales=(0,)), draws the boxes, and saves the image to `--output` or shows
-it. Only the `rgb` wire is ported (`--transfer` other than rgb exits,
-naming ROADMAP item 10 or 15). `--device` (default cuda) is the port's own
-flag.
+it. With `--transfer jpegdct` a .jpg file's bytes go to the detector as
+they are (the GPU decodes the coefficients); `yuv420` and `jpegdct4` are
+not ported (ROADMAP item 15). `--device` (default cuda) is the port's own
+flag. PIL reads the image to draw on.
 """
 
 from __future__ import annotations
 
 import argparse
+from pathlib import Path
 
 import numpy as np
 
@@ -32,15 +34,20 @@ def arguments(argv=None):
                         help="backbone (reference model.py:13 base_model knob)")
     parser.add_argument("--output", default="", help="save annotated image here instead of .show()")
     parser.add_argument("--transfer", default="rgb", choices=("rgb", "yuv420", "jpegdct", "jpegdct4"),
-                        help="wire format; only rgb is ported")
+                        help="wire format; jpegdct feeds the JPEG file's own DCT "
+                             "coefficients to the device (yuv420, jpegdct4: ROADMAP item 15)")
     parser.add_argument("--device", default="cuda", help="torch device (cuda, cuda:N or cpu)")
     return parser.parse_args(argv)
 
 
-def run(model, image, templates, prob_thresh, nms_thresh, *, device, transfer="rgb"):
-    """(N, 5) detections of one image at scale 1."""
+def run(model, image, templates, prob_thresh, nms_thresh, *, device, transfer="rgb",
+        jpeg_bytes=None):
+    """(N, 5) detections of one image at scale 1; on the jpegdct wire from
+    `jpeg_bytes` when given."""
     detector = PyramidDetector(model, templates, cfg=DetectorConfig(), ec=EvalConfig(),
                                device=device, transfer=transfer)
+    if transfer == "jpegdct" and jpeg_bytes is not None:
+        return detector.detect_batch([jpeg_bytes], prob_thresh, nms_thresh, scales=(0,))[0]
     return detector.detect(np.asarray(image), prob_thresh, nms_thresh, scales=(0,))
 
 
@@ -54,8 +61,11 @@ def main(argv=None):
     print("Loaded model", args.checkpoint)
 
     image = Image.open(args.image_path).convert("RGB")
+    jpeg_bytes = None
+    if args.transfer == "jpegdct" and args.image_path.lower().endswith((".jpg", ".jpeg")):
+        jpeg_bytes = Path(args.image_path).read_bytes()
     dets = run(model, image, templates, args.prob_thresh, args.nms_thresh, device=args.device,
-               transfer=args.transfer)
+               transfer=args.transfer, jpeg_bytes=jpeg_bytes)
     print(f"{dets.shape[0]} detections")
 
     draw = ImageDraw.Draw(image)

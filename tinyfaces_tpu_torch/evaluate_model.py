@@ -6,8 +6,11 @@ the reference evaluate_model.py:16-31):
 
 Runs the multi-scale pyramid detector over the val/test split and writes
 WIDER-format result files (<results_dir>/<event>/<img>.txt), to be graded
-by wider_eval.py. Only the `rgb` wire is ported: the other `--transfer`
-choices exit naming ROADMAP item 10 or 15, `--resample pil` item 7, and
+by wider_eval.py. `--transfer` defaults to `jpegdct`, as in the JAX CLI:
+worker threads read each JPEG's bytes, the pack stage entropy-decodes them
+in C++ and the device reconstructs the pixels; `rgb` decodes the images
+with PIL on the host and uploads the uint8 canvas. `yuv420` and `jpegdct4`
+exit naming ROADMAP item 15, `--resample pil` item 7, and
 `--data-parallel`/`--shard`/`--coordinator-address` item 13.
 `--device` (default cuda) is the port's own flag; nothing falls back to
 the CPU when there is no GPU.
@@ -25,6 +28,7 @@ import torch
 
 from tinyfaces_tpu_torch.config import DetectorConfig, EvalConfig
 from tinyfaces_tpu_torch.data import get_dataloader
+from tinyfaces_tpu_torch.data.jpegdct import input_dims
 from tinyfaces_tpu_torch.evaluation import PyramidDetector, _round_up, get_model, write_results
 
 # Device-memory guard for the fused pyramid: the 2x level dominates
@@ -82,9 +86,13 @@ def arguments(argv=None):
                         help="per-scale template pruning: reference (default) reproduces "
                              "models/utils.py:15-44 incl. its dead branch; natural enables "
                              "the type-B templates at upsampled scales")
-    parser.add_argument("--transfer", default="rgb",
+    parser.add_argument("--transfer", default="jpegdct",
                         choices=("rgb", "yuv420", "jpegdct", "jpegdct4"),
-                        help="wire format; only rgb (the uint8 canvas) is ported")
+                        help="fused-path wire format. jpegdct (the default) ships the JPEG "
+                             "files' entropy-decoded DCT coefficients (~0.7 B/px) and decodes "
+                             "on the GPU; rgb decodes with PIL on the host and uploads the "
+                             "uint8 canvas; yuv420 and jpegdct4 are not ported (ROADMAP "
+                             "item 15)")
     parser.add_argument("--data-parallel", action="store_true",
                         help="not ported (ROADMAP item 13)")
     parser.add_argument("--coordinator-address", default="",
@@ -104,7 +112,8 @@ def run(detector, dataset, prob_thresh, nms_thresh, split, results_dir=None,
         debug=False, eval_batch=32, host_resize=False, workers=8,
         inflight=3, rank=0, world=1):
     """Evaluate the split with a three-stage pipeline: worker threads decode
-    images (the reference's DataLoader(num_workers=8)), the main thread
+    images (the reference's DataLoader(num_workers=8)) or, on the jpegdct
+    wire, only read the JPEG bytes (`dataset.get_dct`), the main thread
     groups images sharing a padded bucket into fixed-size device batches,
     and up to `inflight` batches are in flight (detect_batch_async) so host
     decode, packing and upload overlap device compute. `host_resize` takes
@@ -123,9 +132,16 @@ def run(detector, dataset, prob_thresh, nms_thresh, split, results_dir=None,
           "t_first_settled": 0.0, "done_at_first": 0}
     t_sweep = time.perf_counter()
 
+    dct = detector.transfer == "jpegdct"
+    if dct and host_resize:
+        raise ValueError("--host-resize needs decoded pixels; use --transfer rgb with it")
+    # jpegdct: the workers entropy-decode only files the fused C++ pack
+    # cannot take; pixels never exist on the host
+    fetch = dataset.get_dct if dct else dataset.__getitem__
+
     if host_resize or eval_batch <= 1:
         for i in indices:
-            image, img_path = dataset[i]
+            image, img_path = fetch(i)
             if host_resize:
                 dets = detector.detect(image, prob_thresh, nms_thresh, host_resize=True)
             else:
@@ -203,12 +219,13 @@ def run(detector, dataset, prob_thresh, nms_thresh, split, results_dir=None,
         nxt = 0
         while futs or nxt < limit:
             while nxt < limit and len(futs) < window:
-                futs.append(pool.submit(dataset.__getitem__, indices[nxt]))
+                futs.append(pool.submit(fetch, indices[nxt]))
                 nxt += 1
             t0 = time.perf_counter()
             image, img_path = futs.popleft().result()
             ph["decode_wait"] += time.perf_counter() - t0
-            bucket = (_round_up(image.shape[0]), _round_up(image.shape[1]))
+            h, w = input_dims(image)
+            bucket = (_round_up(h), _round_up(w))
             groups[bucket].append((image, img_path))
             if len(groups[bucket]) >= bucket_batch_for(bucket, eval_batch):
                 flush(bucket)
@@ -240,10 +257,8 @@ def run(detector, dataset, prob_thresh, nms_thresh, split, results_dir=None,
 
 
 def _unported(args) -> str | None:
-    if args.transfer == "jpegdct":
-        return f"--transfer {args.transfer} is not ported yet (ROADMAP item 10); use rgb"
-    if args.transfer != "rgb":
-        return f"--transfer {args.transfer} is not ported (ROADMAP item 15); use rgb"
+    if args.transfer not in ("rgb", "jpegdct"):
+        return f"--transfer {args.transfer} is not ported (ROADMAP item 15); use jpegdct or rgb"
     if args.resample != "linear":
         return "--resample pil is not ported yet (ROADMAP item 7)"
     if args.data_parallel or args.shard != "batch" or args.coordinator_address:

@@ -1,18 +1,22 @@
 """Evaluation runtime: checkpoint loading, image-pyramid inference, WIDER writer.
 
-Port of tinyfaces_tpu/evaluation.py on the `rgb` wire:
+Port of tinyfaces_tpu/evaluation.py on the `rgb` and `jpegdct` wires:
   * `get_model` / `load_weights`: build the detector and load the port
     trainer's own checkpoint, the JAX package's .npz export, or a reference
     PyTorch .pth (utils/convert.from_reference_pth);
   * `PyramidDetector`: the fused multi-scale pyramid — per-image resize of
     the mean-padded canvas to every level on the device, one forward per
     level, top-K decode, one cross-scale NMS per image — returning a packed
-    (B, K, 6) tensor whose copy to the host runs behind a CUDA event;
+    (B, K, 6) tensor whose copy to the host runs behind a CUDA event. On
+    the `jpegdct` wire it takes JPEG bytes (or DCTImage, or uint8 arrays
+    through PIL's transcode): the host entropy-decodes and packs them
+    (data/jpegdct.py) and the device reconstructs the normalized canvas
+    (ops/jpeg.py);
   * `write_results`: the WIDER per-image result tree
     <results_dir>/<event>/<img>.txt, byte for byte as the JAX writer.
 
 Not ported (each raises, naming the ROADMAP item that brings it): the
-`yuv420`/`jpegdct`/`jpegdct4` wires (items 10, 15), `resample="pil"`
+`yuv420`/`jpegdct4` wires (item 15), `resample="pil"`
 (item 7), and `mesh`/`shard` (items 13, 15). The 2x level resizes and then
 convolves whatever `EvalConfig.fold_stem` says: the folded stem
 (ops/stemfold.py) equals that up to summation order (config.py:85-89) and
@@ -28,18 +32,20 @@ import numpy as np
 import torch
 
 from tinyfaces_tpu_torch.config import DetectorConfig, EvalConfig
+from tinyfaces_tpu_torch.data import jpegdct
 from tinyfaces_tpu_torch.data.targets import normalize_images
 from tinyfaces_tpu_torch.data.wider_face import MEAN_PIXEL
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
 from tinyfaces_tpu_torch.models.resnet import ARCH_STAGES
 from tinyfaces_tpu_torch.ops.decode import decode_scores, valid_template_mask
+from tinyfaces_tpu_torch.ops.jpeg import dct_batch_to_normalized
 from tinyfaces_tpu_torch.ops.nms import batched_nms_padded
 from tinyfaces_tpu_torch.ops.resize import resize_batch
 from tinyfaces_tpu_torch.utils.convert import from_npz, from_reference_pth
 
+TRANSFERS = ("rgb", "jpegdct")
 _UNPORTED_TRANSFERS = {
     "yuv420": "ROADMAP item 15 (decide or drop)",
-    "jpegdct": "ROADMAP item 10",
     "jpegdct4": "ROADMAP item 15 (decide or drop)",
 }
 
@@ -126,9 +132,9 @@ def _round_up(x: int) -> int:
 
 class PackedBatch(NamedTuple):
     """Upload-ready host half of one detector batch (pack_inputs): `host`
-    is the uint8 (B, h0p, w0p, 3) canvas, in pinned memory when the
-    detector's device is a GPU; hs/ws the per-image true sizes; h0p/w0p
-    the padded canvas."""
+    is the uint8 (B, h0p, w0p, 3) canvas on the rgb wire, the (B, total)
+    uint8 wire on jpegdct, in pinned memory when the detector's device is a
+    GPU; hs/ws the per-image true sizes; h0p/w0p the padded canvas."""
 
     host: torch.Tensor
     hs: np.ndarray
@@ -150,7 +156,8 @@ class PyramidDetector:
     """Multi-scale detector over one device.
 
     `trace`: set to a list to record, on a GPU, one (phase, CUDA event) pair
-    after each phase of every batch — "upload", then "resize s",
+    after each phase of every batch — "upload", "unpack" (the normalized
+    canvas from the uint8 pixels or the jpegdct wire), then "resize s",
     "forward s" and "decode s" per level s, "nms" and "d2h"; the time of a
     phase is the elapsed time from the previous event. None (the default)
     records nothing."""
@@ -169,8 +176,8 @@ class PyramidDetector:
     ):
         if transfer in _UNPORTED_TRANSFERS:
             raise ValueError(f"transfer={transfer!r} is not ported yet: "
-                             f"{_UNPORTED_TRANSFERS[transfer]}; use 'rgb'")
-        if transfer != "rgb":
+                             f"{_UNPORTED_TRANSFERS[transfer]}; use one of {TRANSFERS}")
+        if transfer not in TRANSFERS:
             raise ValueError(f"unknown transfer mode {transfer!r}")
         if mesh is not None or shard != "batch":
             raise ValueError("mesh/shard (multi-device pyramid) is not ported yet: ROADMAP "
@@ -221,7 +228,9 @@ class PyramidDetector:
     ) -> np.ndarray:
         """(N, 5) [x1, y1, x2, y2, score] detections on the host. Default:
         the fused pyramid; `host_resize=True` resizes each level with PIL on
-        the host (the reference's resampling, one forward per level)."""
+        the host (the reference's resampling, one forward per level; JPEG
+        bytes are decoded with PIL first). `image`: (H, W, 3) uint8, or on
+        the jpegdct wire also JPEG bytes or a DCTImage."""
         if not host_resize:
             return self.detect_batch([image], prob_thresh, nms_thresh, scales)[0]
         return self._detect_host_resize(image, prob_thresh, nms_thresh, scales)
@@ -239,9 +248,12 @@ class PyramidDetector:
         level sizes."""
         return self._fetch(self.detect_batch_async(images, prob_thresh, nms_thresh, scales))
 
-    def pack_inputs(self, images: Sequence[np.ndarray]) -> PackedBatch:
-        """Host half of detect_batch_async: the bucketed uint8 canvas with
-        mean-pixel margins, without touching the device."""
+    def pack_inputs(self, images: Sequence) -> PackedBatch:
+        """Host half of detect_batch_async, without touching the device: the
+        bucketed uint8 canvas with mean-pixel margins, or on the jpegdct
+        wire the packed coefficients of the bucketed canvas."""
+        if self.transfer == "jpegdct":
+            return self._pack_jpegdct(images)
         hs = [im.shape[0] for im in images]
         ws = [im.shape[1] for im in images]
         h0p, w0p = _round_up(max(hs)), _round_up(max(ws))
@@ -258,6 +270,17 @@ class PyramidDetector:
                 batch[i, :h, w:] = MEAN_PIXEL
             if h < h0p:
                 batch[i, h:] = MEAN_PIXEL
+        return PackedBatch(host, np.asarray(hs, np.int32), np.asarray(ws, np.int32), h0p, w0p)
+
+    def _pack_jpegdct(self, images: Sequence) -> PackedBatch:
+        # Raw JPEG bytes stay raw: a header-only probe sizes the canvas and
+        # pack_dct_batch entropy-decodes and packs them in one C++ pass.
+        items = [jpegdct.as_wire_input(im) for im in images]
+        hs, ws = zip(*(jpegdct.input_dims(im) for im in items))
+        h0p, w0p = _round_up(max(hs)), _round_up(max(ws))
+        total = jpegdct.wire_layout(h0p, w0p)["__total__"]
+        host = torch.empty((len(items), total), dtype=torch.uint8, pin_memory=self._pinned())
+        jpegdct.pack_dct_batch(items, h0p, w0p, out=host.numpy())
         return PackedBatch(host, np.asarray(hs, np.int32), np.asarray(ws, np.int32), h0p, w0p)
 
     def _level_sizes(self, hs: np.ndarray, ws: np.ndarray, scales: tuple) -> np.ndarray:
@@ -291,6 +314,8 @@ class PyramidDetector:
         packed = images if isinstance(images, PackedBatch) else self.pack_inputs(images)
         b = packed.hs.shape[0]
         # One small int64 upload: true sizes (B, 2) and level sizes (B, L, 2).
+        # (On the jpegdct wire the sizes also ride in its h0w0 field; both
+        # come from the same header parse.)
         meta = np.concatenate([np.stack([packed.hs, packed.ws], 1).astype(np.int64),
                                self._level_sizes(packed.hs, packed.ws, scales).reshape(b, -1)], 1)
         meta_t = torch.from_numpy(meta)
@@ -313,11 +338,17 @@ class PyramidDetector:
 
     def _fused_pyramid(self, images, size_hw, level_hw, *, scales: tuple, h0p: int, w0p: int,
                        prob_thresh: float, nms_thresh: float) -> torch.Tensor:
-        """Whole pyramid for one batch: normalize, resize every level of
-        the canvas, forward, decode, then one cross-scale NMS per image."""
+        """Whole pyramid for one batch: the normalized canvas from either
+        wire, resize of every level, forward, decode, then one cross-scale
+        NMS per image."""
         # normalize commutes with the (linear) resize; straight into the
         # model's compute dtype, as the JAX program does
-        x0 = normalize_images(images, dtype=self.dtype).permute(0, 3, 1, 2).contiguous()
+        if self.transfer == "jpegdct":
+            x0 = dct_batch_to_normalized({"_wire": images}, h0p, w0p, dtype=self.dtype)
+        else:
+            x0 = normalize_images(images, dtype=self.dtype)
+        x0 = x0.permute(0, 3, 1, 2).contiguous()
+        self._mark("unpack")
         st = int(self.stride)
         all_b, all_s, all_v = [], [], []
         for si, s in enumerate(scales):
@@ -374,6 +405,15 @@ class PyramidDetector:
         prob_thresh = self.ec.prob_thresh if prob_thresh is None else prob_thresh
         nms_thresh = self.ec.nms_thresh if nms_thresh is None else nms_thresh
         scales = self.ec.scales if scales is None else scales
+
+        if jpegdct.is_bytes(image):
+            # raw JPEG bytes (jpegdct wire): this path resizes pixels on the
+            # host, so it decodes them fully first
+            import io
+
+            from PIL import Image
+
+            image = np.asarray(Image.open(io.BytesIO(bytes(image))).convert("RGB"))
 
         h, w = image.shape[:2]
         min_side = min(h, w)

@@ -8,16 +8,23 @@ of the reference main.py:18-36), flag for flag with the same defaults, plus
 Flow (reference main.py:39-104): the WIDER train data -> the detector
 seeded from `--seed` (optionally its backbone from `--pretrained-backbone`)
 -> SGD with per-group LRs and StepLR -> the epoch loop, in which every
-sample is augmented by the C++ engine and every step's GT assignment runs
+sample is augmented by the C++ engine (on the rgb wire) or on the device
+(jpegdct) and every step's GT assignment runs
 the CUDA kernel -> `weights/checkpoint_{epoch+1}` every `--save-every`
 epochs and on SIGTERM. `--resume PATH` restores model, optimizer, step and
 epoch and goes on from the saved epoch unless `--start-epoch` is given.
 Without `--bf16` the run is fp32 throughout: TF32 is turned off for matmuls
 and convolutions (cuDNN allows it by default).
 
-Not ported, each exiting with the ROADMAP item that brings it: `--transfer`
-other than rgb (items 11, 15) and multi-process training
-(`--num-processes > 1`, `--coordinator-address`: item 13). Nothing falls
+`--transfer jpegdct` reads each image's JPEG bytes instead of decoding it
+with PIL: the host entropy-decodes once per image (cached) and ships the
+coefficients of each crop's source region, and the device decodes and
+augments them (data/dct_train.py); no PIL is needed for baseline 4:2:0 or
+grayscale files.
+
+Not ported, each exiting with the ROADMAP item that brings it: `--transfer
+yuv420` (item 15) and multi-process training (`--num-processes > 1`,
+`--coordinator-address`: item 13). Nothing falls
 back to the CPU: without a GPU, `--device cpu` must be given.
 """
 
@@ -80,8 +87,9 @@ def arguments(argv=None):
                         help="append structured JSONL training metrics here")
     parser.add_argument("--transfer", default="rgb",
                         choices=("rgb", "yuv420", "jpegdct"),
-                        help="train-input wire format; only rgb is ported "
-                             "(jpegdct: ROADMAP item 11, yuv420: item 15)")
+                        help="train-input wire format: rgb decodes with PIL and augments "
+                             "on the host; jpegdct ships DCT coefficients and augments on the "
+                             "device; yuv420 is not ported (ROADMAP item 15)")
     parser.add_argument("--nan-guard", action="store_true",
                         help="drop non-finite updates on device instead of "
                              "poisoning the weights")
@@ -103,9 +111,8 @@ def arguments(argv=None):
 def _check_supported(args) -> torch.device:
     if args.num_processes > 1 or args.coordinator_address:
         raise SystemExit("multi-process training is not ported: ROADMAP item 13")
-    if args.transfer != "rgb":
-        item = "item 11" if args.transfer == "jpegdct" else "item 15"
-        raise SystemExit(f"--transfer {args.transfer} is not ported: ROADMAP {item}")
+    if args.transfer not in ("rgb", "jpegdct"):
+        raise SystemExit(f"--transfer {args.transfer} is not ported: ROADMAP item 15")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but torch.cuda.is_available() is False; "
@@ -163,7 +170,8 @@ def run(args, dataset=None) -> Trainer | None:
     weights_dir.mkdir(exist_ok=True)
     trainer = Trainer(model=model, cfg=cfg, tc=tc, templates=templates, device=device,
                       seed=args.seed, nan_guard=args.nan_guard,
-                      metrics_path=args.metrics_log or None, augment="native")
+                      metrics_path=args.metrics_log or None, augment="native",
+                      transfer=args.transfer)
     trainer.setup(max(1, len(dataset) // tc.batch_size))
 
     start_epoch = args.start_epoch

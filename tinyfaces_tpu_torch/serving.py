@@ -1,8 +1,9 @@
 """Dynamic-batching detection service over PyramidDetector.
 
-Port of tinyfaces_tpu/serving.py on the `rgb` wire:
-  * callers submit (H, W, 3) uint8 images from any thread and get a Future
-    that resolves to the (N, 5) detections;
+Port of tinyfaces_tpu/serving.py on the `rgb` and `jpegdct` wires:
+  * callers submit (H, W, 3) uint8 images — on the jpegdct wire also JPEG
+    bytes or a DCTImage — from any thread and get a Future that resolves to
+    the (N, 5) detections;
   * a dispatcher thread groups pending requests into device batches —
     same-bucket images together, at most `max_batch`, waiting at most
     `max_delay_ms` for more — padded to the next power of two so the set of
@@ -21,6 +22,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from tinyfaces_tpu_torch.data.jpegdct import as_wire_input, input_dims
 from tinyfaces_tpu_torch.evaluation import PyramidDetector, _round_up
 
 
@@ -46,13 +48,20 @@ class DetectionService:
         self._dispatcher = threading.Thread(target=self._run, daemon=True)
         self._dispatcher.start()
 
-    def submit(self, image: np.ndarray) -> Future:
-        """Enqueue one (H, W, 3) uint8 image; resolves to (N, 5) detections."""
+    def submit(self, image) -> Future:
+        """Enqueue one image; resolves to (N, 5) detections. Takes (H, W, 3)
+        uint8 arrays; on the jpegdct wire also JPEG bytes or a DCTImage.
+        Baseline 4:2:0 and grayscale JPEG bytes stay raw (a header-only
+        probe here) and are entropy-decoded and packed in one C++ pass at
+        dispatch; other inputs are entropy-decoded (or transcoded) on the
+        caller's thread."""
+        if self.detector.transfer == "jpegdct":
+            image = as_wire_input(image)
         fut: Future = Future()
         self._queue.put((image, fut))
         return fut
 
-    def detect(self, image: np.ndarray) -> np.ndarray:
+    def detect(self, image) -> np.ndarray:
         return self.submit(image).result()
 
     def close(self) -> None:
@@ -88,8 +97,9 @@ class DetectionService:
         return group
 
     @staticmethod
-    def _bucket(image: np.ndarray) -> tuple[int, int]:
-        return (_round_up(image.shape[0]), _round_up(image.shape[1]))
+    def _bucket(image) -> tuple[int, int]:
+        h, w = input_dims(image)
+        return (_round_up(h), _round_up(w))
 
     def _resolve(self, entry) -> None:
         submitted, group = entry

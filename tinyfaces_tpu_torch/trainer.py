@@ -20,7 +20,8 @@ for one device:
 Each step's randomness comes from a generator seeded with (seed, step), and
 each epoch's shuffle and augmentation from (seed, epoch), so a resumed run
 draws exactly what an uninterrupted one would. The input is the `rgb` wire
-(uint8 pixels); the other wires are not ported.
+(uint8 pixels) or `jpegdct` (DCT coefficients of each sample's source
+region, augmented on the device); `yuv420` is not ported.
 """
 
 from __future__ import annotations
@@ -227,6 +228,7 @@ class Trainer:
     nan_guard: bool = False  # drop non-finite updates on device
     metrics_path: Optional[str | Path] = None  # JSONL structured log
     augment: str = "native"  # "native": the C++ engine; "python": dataset[i]
+    transfer: str = "rgb"  # train-input wire: "rgb" pixels or "jpegdct" coefficients
 
     def __post_init__(self):
         if self.augment not in ("native", "python"):
@@ -274,10 +276,11 @@ class Trainer:
         `dataset` is a train WIDERFace whose samples the C++ engine
         augments; with "python" its items are taken as they come (a
         WIDERFace's Python augmentation, or any map-style dataset of
-        train-sample dicts)."""
+        train-sample dicts). With transfer="jpegdct" either loader takes
+        the dataset's `getitem_train_dct`."""
         cls = NativePrefetchLoader if self.augment == "native" else PrefetchLoader
         loader = cls(dataset, self.tc.batch_size, device=self.device, workers=self.tc.workers,
-                     seed=self.seed, epoch=epoch)
+                     seed=self.seed, epoch=epoch, pack=self.transfer)
         timer = StepTimer(warmup=1)
         n_batches = len(loader)
         # Loss scalars are fetched lazily: the host blocks on the device only
@@ -309,7 +312,8 @@ class Trainer:
         idx = 0
         while batch is not None:
             lb = self.train_step(batch)
-            pending.append((idx, batch["image"].shape[0], lb))
+            images = batch["image"] if "image" in batch else batch["dct_wire"]
+            pending.append((idx, images.shape[0], lb))
             # Take the next batch (queue hand-over, non-blocking upload)
             # while this step runs on the device.
             batch = next(batches, None)
