@@ -94,17 +94,38 @@ this one, other/this/this/other, at phase 2's timed scenes):
      sample from the C++ engine, K1 once per step, losses finite, the
      epoch_end gt_dropped_boxes > 0 and equal to the overflow counters;
      ms/step, the loader's wait once the coefficients are cached, peak
-     memory.
+     memory;
+ 15. the PIL-bilinear resize (ops/pilresize.py) on the card: 28 randomised
+     canvases in 7 cases (factors 0.25 to 2, true sizes inside padded
+     canvases) byte-equal to the float64 host oracle, with TF32 off and
+     then allowed (restored after); the three resized levels of the
+     768x1024 bucket at batch 32 timed beside the linear resize, with the
+     memory the float64 products take;
+ 16. phase 5's card-vs-CPU check and phase 6's full-width pyramid (bf16 and
+     fp32) with EvalConfig(resample="pil"): the same tolerances, img/s,
+     the CUDA-event split with its "resize", peak memory;
+ 17. the closed loop through the CLIs as child processes, under
+     build/chip_smoke/e2e/: `python -m tinyfaces_tpu_torch.tools.e2e_accuracy
+     --train-images 48 --val-images 16 --epochs 2` paints the trees, trains
+     ResNet-101 at batch 12 (K1 once per step, counted by the child and
+     reported at its end), sweeps the held-out 768x1024 images (bf16,
+     jpegdct) and grades them; ap_cost runs its four configurations on the
+     checkpoint; cluster_templates clusters the train tree into 25 medoids,
+     which load_templates re-clusters from a missing file; the grader gives
+     AP 1.0 for the val GT written as a result tree and 0.0 for an empty
+     tree. Every child must exit 0 and every AP lie in [0, 1].
 
-Phases run in the order 0-7, 9-13, 8, 14 (9-13 need phase 5's model).
+Phases run in the order 0-7, 9-13, 15, 16, 8, 14, 17 (9-13 and 16 need
+phase 5's model).
 
 The kernel build and the two host builds (the C++ engine, the JPEG
 decoder) run side by side in phase 1. The second-to-last line of output is
 the card's `nvidia-smi` name and power limit; before it, one JSON line
 describes each kernel (its launches on each path, error, times, bound),
-before that one JSON line holds phases 9-14's jpegdct numbers, before that
-one phase 8's training numbers and before that one the inference numbers;
-the last line is {"ok": true, "device": {...}}.
+before that one JSON line holds phases 15-17's accuracy numbers, before
+that one phases 9-14's jpegdct numbers, before that one phase 8's training
+numbers and before that one the inference numbers; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -134,11 +155,13 @@ from tinyfaces_tpu_torch.config import DetectorConfig, EvalConfig, TrainConfig
 from tinyfaces_tpu_torch.data import WIDERFace, jpegdct, load_templates, native, overflow
 from tinyfaces_tpu_torch.data.loader import PrefetchLoader
 from tinyfaces_tpu_torch.data.targets import normalize_images
-from tinyfaces_tpu_torch.evaluation import PyramidDetector, _round_up
+from tinyfaces_tpu_torch.evaluation import PyramidDetector, _round_up, pyramid_level_sizes_np
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
 from tinyfaces_tpu_torch.ops import assignment_kernel
 from tinyfaces_tpu_torch.ops import jpeg as jpeg_ops
+from tinyfaces_tpu_torch.ops import pilresize
 from tinyfaces_tpu_torch.ops.assignment import compose_targets, compute_pad_mask
+from tinyfaces_tpu_torch.ops.resize import resize_batch
 from tinyfaces_tpu_torch.serving import DetectionService
 from tinyfaces_tpu_torch.trainer import Trainer, load_checkpoint, save_checkpoint
 from tinyfaces_tpu_torch.utils import cuda_build
@@ -651,18 +674,20 @@ def split_ms(trace: list) -> dict:
     return out
 
 
-def phase_full_width(calibrated: TinyFacesDetector, templates_np, dev: torch.device, name: str):
+def phase_full_width(calibrated: TinyFacesDetector, templates_np, dev: torch.device, name: str,
+                     ec: EvalConfig = EvalConfig()):
+    """Phase 6 (and phase 16 with resample="pil"): the full-width pyramid."""
     rng = np.random.default_rng(6)
     b = 32
     images = pink_images(rng, [(768, 1024)] * b)
     levels = [(192, 256), (384, 512), (768, 1024), (1536, 2048)]
     tflop = sum(conv_flops(calibrated, hw, dev) for hw in levels) / 1e12
     print(f"4-level pyramid of one 768x1024 image: {tflop:.3f} TFLOP of convolution", flush=True)
-    results = {"conv_tflop_per_image": tflop}
+    results = {"conv_tflop_per_image": tflop, "resample": ec.resample}
     for label, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
         model = TinyFacesDetector(dtype=dtype).to(dev)
         model.load_state_dict(calibrated.state_dict())
-        det = PyramidDetector(model, templates_np, DetectorConfig(), EvalConfig(), device=dev)
+        det = PyramidDetector(model, templates_np, DetectorConfig(), ec, device=dev)
         t0 = time.perf_counter()
         packed = det.pack_inputs(images)
         pack_ms = 1000.0 * (time.perf_counter() - t0)
@@ -694,7 +719,8 @@ def phase_full_width(calibrated: TinyFacesDetector, templates_np, dev: torch.dev
              "split_ms": {k: round(v, 3) for k, v in split.items()},
              "dets_per_image": float(np.mean([len(o) for o in outs]))}
         results[label] = r
-        print(f"pyramid {label} ResNet-101, 768x1024 bucket, batch {b}, EvalConfig() defaults: "
+        print(f"pyramid {label} ResNet-101, 768x1024 bucket, batch {b}, EvalConfig() defaults, "
+              f"resample={ec.resample}: "
               f"{r['img_per_s']:.2f} img/s ({r['batch_ms']:.1f} ms/batch over {n} batches after 2 "
               f"warm-up; host pack {pack_ms:.1f} ms/batch not included), batch-1 latency "
               f"{r['batch1_ms']:.2f} ms (median of 5, pack included), peak memory {peak:.2f} GiB, "
@@ -1273,6 +1299,188 @@ def phase_train_cli_jpegdct(templates_np, fixtures: dict, dev: torch.device, nam
     return result, launches
 
 
+# --- the accuracy path: phases 15-17 ---------------------------------------
+
+
+def phase_pil_resize(dev: torch.device) -> dict:
+    """Phase 15: resize_pil_batch on the card byte-equal to the float64 host
+    oracle on randomised canvases (true sizes inside padded canvases, up-
+    and downscales at the pyramid's factors and others), with TF32 off and
+    then allowed; then the three resized levels of the 768x1024 bucket at
+    batch 32 timed beside the linear resize of the same canvases."""
+    rng = np.random.default_rng(15)
+    cases, n_images = [], 0
+    for factor in (0.25, 2**-0.5, 0.5, 2**0.5, 2.0, 0.37, 1.6):
+        h0p, w0p = (int(v) for v in rng.integers(64, 320, 2))
+        hs, ws = rng.integers(h0p // 2, h0p + 1, 4), rng.integers(w0p // 2, w0p + 1, 4)
+        levels = pyramid_level_sizes_np(hs, ws, factor)
+        out_hw = PyramidDetector._level_canvas(h0p, w0p, math.log2(factor))
+        x = rng.integers(0, 256, (4, h0p, w0p, 3), dtype=np.uint8)
+        want = [pilresize.resize_pil_bilinear_np(x[i, :h, :w], th, tw)
+                for i, (h, w, (th, tw)) in enumerate(zip(hs, ws, levels))]
+        cases.append((x, np.stack([hs, ws], 1), levels, out_hw, want))
+        n_images += 4
+
+    def check_cases(tag: str) -> None:
+        for x, sizes, levels, out_hw, want in cases:
+            got = pilresize.resize_pil_batch(
+                torch.from_numpy(x).to(dev).permute(0, 3, 1, 2), out_hw,
+                torch.from_numpy(sizes).to(dev), torch.from_numpy(levels.astype(np.int64)).to(dev))
+            got = got.permute(0, 2, 3, 1).cpu().numpy()
+            for i, (th, tw) in enumerate(levels):
+                check(np.array_equal(got[i, :th, :tw], want[i]) and not got[i, th:].any()
+                      and not got[i, :, tw:].any(),
+                      f"PIL resize {tag}: {x.shape[1:3]} -> {(th, tw)} differs from the host oracle")
+
+    check_cases("TF32 off")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        check_cases("TF32 on")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    print(f"PIL resize on the card: {n_images} canvases in {len(cases)} cases (factors 0.25-2, true "
+          f"sizes inside padded canvases) byte-equal to the float64 host oracle with TF32 off and "
+          f"with TF32 allowed", flush=True)
+
+    b, size = 32, (768, 1024)
+    pixels = torch.randint(0, 256, (b, 3, *size), dtype=torch.uint8, device=dev)
+    canvas64 = pixels.to(torch.float64)
+    normalized = normalize_images(pixels.permute(0, 2, 3, 1), dtype=torch.bfloat16)
+    normalized = normalized.permute(0, 3, 1, 2).contiguous()
+    sizes = torch.tensor([size] * b, device=dev)
+    out = {"batch": b, "canvas": list(size), "levels": {}}
+    for sexp in (-2, -1, 1):
+        f = 2.0**sexp
+        level = sizes.clone()
+        level[:, 0], level[:, 1] = int(size[0] * f), int(size[1] * f)
+        out_hw = PyramidDetector._level_canvas(*size, sexp)
+        taps = (pilresize.max_taps([size[0]], [level[0, 0].item()]),
+                pilresize.max_taps([size[1]], [level[0, 1].item()]))
+        pil_ms = cuda_ms(lambda: pilresize.resize_pil_batch(canvas64, out_hw, sizes, level, taps),
+                         runs=5, warmup=1)
+        linear_ms = cuda_ms(lambda: resize_batch(normalized, out_hw, sizes, level), runs=5, warmup=1)
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        pilresize.resize_pil_batch(canvas64, out_hw, sizes, level, taps)
+        torch.cuda.synchronize(dev)
+        extra_gib = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        # the two dense float64 products, width first
+        flop = 2.0 * b * 3 * (size[0] * out_hw[1] * size[1] + out_hw[0] * out_hw[1] * size[0])
+        out["levels"][f"2^{sexp}"] = {"pil_fp64_ms": pil_ms, "linear_bf16_ms": linear_ms,
+                                      "pil_extra_gib": extra_gib, "pil_matmul_tflop": flop / 1e12,
+                                      "pil_tflop_per_s": flop / 1e12 / (pil_ms / 1e3)}
+        print(f"  resize level 2^{sexp} of the 768x1024 bucket, batch {b}: pil (float64, weights "
+              f"built on the card) {pil_ms:.3f} ms, {flop / 1e12:.3f} TFLOP of matmul "
+              f"({flop / 1e9 / pil_ms:.2f} TFLOP/s), {extra_gib:.2f} GiB beyond the canvas; "
+              f"linear bf16 {linear_ms:.3f} ms", flush=True)
+    del pixels, canvas64, normalized
+    torch.cuda.empty_cache()
+    out["images_checked"] = n_images
+    return out
+
+
+def phase_pil_pyramid(calibrated: TinyFacesDetector, templates_np, dev: torch.device, name: str) -> dict:
+    """Phase 16: phase 5's card-vs-CPU check and phase 6's full-width
+    pyramid with EvalConfig(resample="pil")."""
+    rng = np.random.default_rng(5)
+    images = pink_images(rng, [(192, 256), (176, 248)])  # phase 5's images
+    ec = EvalConfig(scales=(-1, 0, 1), resample="pil")
+    gpu = PyramidDetector(calibrated, templates_np, DetectorConfig(), ec, device=dev)
+    cpu = PyramidDetector(copy.deepcopy(calibrated).cpu(), templates_np, DetectorConfig(), ec, device="cpu")
+    vs_cpu = compare_with_cpu(gpu.detect_batch(images), cpu.detect_batch(images))
+    print(f"pil pyramid card vs CPU, ResNet-101 fp32, 2 images ~192x256, scales (-1, 0, 1): "
+          f"{vs_cpu['pairs']} detections paired, {vs_cpu['unpaired']} unpaired near-ties, max box "
+          f"error {vs_cpu['max_box_err_px']:.3g} px, max score error {vs_cpu['max_score_err']:.3g}",
+          flush=True)
+    del gpu, cpu
+    full = phase_full_width(calibrated, templates_np, dev, name, ec=EvalConfig(resample="pil"))
+    return {"gpu_vs_cpu": vs_cpu, **full}
+
+
+def run_child(log: Path, *argv: str) -> str:
+    """`python -m argv...` from the checkout's root; its output goes to
+    `log`, and a non-zero exit fails the phase with the log's tail."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    log.write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        print("\n".join((proc.stdout + proc.stderr).splitlines()[-40:]), flush=True)
+    check(proc.returncode == 0, f"{argv[0]} exited {proc.returncode}; see {log}")
+    print(f"  {argv[0]}: exit 0 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return proc.stdout
+
+
+def phase_closed_loop(dev: torch.device, name: str) -> tuple[dict, int]:
+    """Phase 17: the closed loop through the CLIs as child processes:
+    e2e_accuracy (48 train and 16 val painted images, ResNet-101, batch 12,
+    2 epochs; K1 in the child on every step), ap_cost's four configurations
+    on its checkpoint, cluster_templates on its train tree, and the grader
+    on the val GT written as a result tree and on an empty one. Returns the
+    numbers and the K1 launches the training child reports."""
+    work = ROOT / "build" / "chip_smoke" / "e2e"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    run_child(work / "e2e.log", "tinyfaces_tpu_torch.tools.e2e_accuracy", "--train-images", "48",
+              "--val-images", "16", "--epochs", "2", "--workdir", str(work))
+    e2e = json.loads((work / "E2E_ACCURACY.json").read_text())
+    steps = e2e["total_steps"]
+    check(steps == 8 and e2e["k1_launches"] == steps,
+          f"K1 launched {e2e['k1_launches']} times in {steps} steps of the training child")
+    check(e2e["device"] == torch.cuda.get_device_name(dev), f"the eval child ran on {e2e['device']}")
+    run_child(work / "ap_cost.log", "tinyfaces_tpu_torch.tools.ap_cost", "--workdir", str(work),
+              "--epochs", "2")
+    cost = json.loads((work / "AP_COST.json").read_text())
+    aps = [e2e["ap"]] + [c["ap"] for c in cost["configs"].values()]
+    check(len(cost["configs"]) == 4 and all(0.0 <= v <= 1.0 for ap in aps for v in ap.values()),
+          f"APs {aps}")
+
+    train_txt = work / "wider" / "wider_face_split" / "train.txt"
+    run_child(work / "cluster.log", "tinyfaces_tpu_torch.tools.cluster_templates", str(train_txt),
+              "--out", str(work / "templates.json"))
+    clustered = np.asarray(json.loads((work / "templates.json").read_text()))
+    check(clustered.shape == (25, 5), f"cluster_templates wrote {clustered.shape}")
+    reclustered = load_templates(work / "reclustered.json", train_txt, 25)
+    by_shape = lambda t: np.round(t[np.lexsort(t[:, :4].T), :4], 8)  # noqa: E731
+    check(reclustered.shape == (25, 4) and np.array_equal(by_shape(reclustered), by_shape(clustered)),
+          "load_templates re-clustered other medoids than cluster_templates")
+
+    val_txt = work / "wider" / "wider_face_split" / "wider_face_val_bbx_gt.txt"
+    gt_tree = work / "gt_as_results"
+    n_faces = duplicates = 0
+    for s in WIDERFace(val_txt, np.zeros((0, 5)), split="val").samples:
+        # a box given twice in one image can match only once: AP 1.0 needs none
+        duplicates += len(s.bboxes) - len(np.unique(s.bboxes, axis=0))
+        rows = [f"{int(x1)} {int(y1)} {int(x2 - x1 + 1)} {int(y2 - y1 + 1)} 1.0" for x1, y1, x2, y2 in s.bboxes]
+        path = gt_tree / s.img_path.replace("jpg", "txt")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text("\n".join([Path(s.img_path).name, str(len(rows)), *rows]) + "\n")
+        n_faces += len(rows)
+    (work / "empty_results").mkdir()
+    graded = {}
+    for tree, tag in ((gt_tree, "gt"), (work / "empty_results", "empty")):
+        run_child(work / f"grade_{tag}.log", "tinyfaces_tpu_torch.wider_eval", str(val_txt),
+                  "--results-dir", str(tree), "--out", str(work / f"grade_{tag}.json"))
+        graded[tag] = json.loads((work / f"grade_{tag}.json").read_text())["scores"]
+    check(duplicates == 0 and graded["gt"]["all"] == 1.0 and graded["empty"]["all"] == 0.0,
+          f"grader: the GT ({duplicates} duplicate boxes) as results {graded['gt']}, an empty "
+          f"tree {graded['empty']}")
+
+    configs = {k: {"ap": v["ap"], "img_per_s": v["images_per_sec"]} for k, v in cost["configs"].items()}
+    print(f"closed loop ({name}): {steps} steps (ResNet-101, batch 12, 48 painted images), loss_cls "
+          f"{e2e['loss_cls_first_window']} -> {e2e['loss_cls_last_window']}, K1 {e2e['k1_launches']} "
+          f"launches in the training child; AP on 16 held-out 768x1024 images (bf16 jpegdct): "
+          f"{json.dumps(e2e['ap'])}; recall by height {json.dumps(e2e['recall_by_height'])}", flush=True)
+    for k, v in configs.items():
+        print(f"  ap_cost {k}: AP {json.dumps(v['ap'])}, {v['img_per_s']:.2f} img/s", flush=True)
+    print(f"  grader: the val GT ({n_faces} faces) as a result tree AP {json.dumps(graded['gt'])}, "
+          f"an empty tree {json.dumps(graded['empty'])}; cluster_templates and load_templates "
+          f"re-cluster the same 25 medoids", flush=True)
+    return {"card": name, "e2e": e2e, "ap_cost": configs, "grader": graded}, e2e["k1_launches"]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", type=Path, default=None,
@@ -1316,22 +1524,28 @@ def main() -> None:
            "gpu_vs_cpu": phase_dct_pyramid_vs_cpu(model, templates_np, fixtures, dev),
            "bf16": phase_dct_full_width(model, templates_np, fixtures, dev, name),
            **phase_dct_sweep_and_service(model, templates_np, fixtures, dev)}
+    accuracy = {"card": name, "pil_resize": phase_pil_resize(dev),
+                "pil_pyramid": phase_pil_pyramid(model, templates_np, dev, name)}
     del model
     torch.cuda.empty_cache()
     train_cli_result, cli_launches = phase_train_cli(templates_np, dev, name)
     dct["train_cli"], dct_launches = phase_train_cli_jpegdct(templates_np, fixtures, dev, name)
+    gc.collect()
+    torch.cuda.empty_cache()  # the children of phase 17 have the card to themselves
+    accuracy["closed_loop"], e2e_launches = phase_closed_loop(dev, name)
     print(f"all phases passed in {time.perf_counter() - start:.1f} s ({name})", flush=True)
     print(json.dumps({"inference": {"card": name, "gpu_vs_cpu": vs_cpu, **full, **served}}))
     print(json.dumps({"train_cli": train_cli_result}))
     print(json.dumps({"jpegdct": dct}))
+    print(json.dumps({"accuracy": accuracy}))
     print(json.dumps({"kernels": [{
         "name": "dense_assignment_reductions",
         "route": "cuda",
         "source": "tinyfaces_tpu_torch/csrc/dense_assignment.cu",
         "replaces": "tinyfaces_tpu/ops/pallas_assignment.py:209",
-        "launches": launches + cli_launches + dct_launches,
+        "launches": launches + cli_launches + dct_launches + e2e_launches,
         "launches_by_path": {"train_epoch": launches, "train_cli": cli_launches,
-                             "train_cli_jpegdct": dct_launches},
+                             "train_cli_jpegdct": dct_launches, "e2e_train": e2e_launches},
         "max_abs_err": kres["max_abs_err"],
         **kres[f"G{DetectorConfig().max_gt}"],
         "library_ms": None,  # no single PyTorch call computes it

@@ -122,7 +122,7 @@ def test_argument_surface_matches_jax(tmp_path):
 
     ann = _tree(tmp_path)
     for extra, item in ((["--transfer", "jpegdct4"], "item 15"), (["--transfer", "yuv420"], "item 15"),
-                        (["--resample", "pil"], "item 7"), (["--data-parallel"], "item 13"),
+                        (["--resample", "pil"], "transfer='rgb'"), (["--data-parallel"], "item 13"),
                         (["--shard", "spatial"], "item 13"), (["--bf16", "--fp32"], "exclusive")):
         with pytest.raises(SystemExit, match=item):
             cli.main([str(ann), "--device", "cpu", *extra])

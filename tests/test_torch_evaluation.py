@@ -184,10 +184,13 @@ def test_unported_options_raise():
     model = TinyFacesDetector(stage_sizes=TINY)
     assert evaluation.PyramidDetector(model, TEMPLATES, device="cpu", transfer="jpegdct").transfer \
         == "jpegdct"  # ported in tests/test_torch_jpegdct_eval.py
+    assert evaluation.PyramidDetector(model, TEMPLATES, ec=EvalConfig(resample="pil"),
+                                      device="cpu").ec.resample == "pil"  # tests/test_torch_pilresize.py
     for kw, item in ((dict(transfer="yuv420"), "item 15"),
                      (dict(transfer="jpegdct4"), "item 15"), (dict(mesh=object()), "item 13"),
                      (dict(shard="spatial"), "item 13"),
-                     (dict(ec=EvalConfig(resample="pil")), "item 7")):
+                     (dict(ec=EvalConfig(resample="pil"), transfer="jpegdct"), "transfer='rgb'"),
+                     (dict(ec=EvalConfig(resample="nearest")), "resample")):
         with pytest.raises(ValueError, match=item):
             evaluation.PyramidDetector(model, TEMPLATES, device="cpu", **kw)
     with pytest.raises(ValueError, match="orbax"):

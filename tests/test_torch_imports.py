@@ -1,7 +1,8 @@
 """The port imports nothing of JAX or of the JAX package: every module of
 tinyfaces_tpu_torch, and chip_smoke.py, imports in a fresh interpreter where
 `import jax`, `import tinyfaces_tpu` and `import PIL` fail (the machine with
-the GPU has neither JAX nor PIL). The port's own copies of what it took from
+the GPU has neither JAX nor PIL), and the port's grader grades a result tree
+there. The port's own copies of what it took from
 the JAX package (configurations, templates.json, the step timer) stay equal
 to the originals."""
 
@@ -38,6 +39,24 @@ from tinyfaces_tpu_torch.data import jpegdct
 assert {"tinyfaces_tpu_torch.data.jpegdct", "tinyfaces_tpu_torch.data.dct_train",
         "tinyfaces_tpu_torch.ops.jpeg"} <= set(names)
 assert jpegdct.jpeg_dims(open("tests/torch_jpeg/odd_197x263_q90.jpg", "rb").read()) == (197, 263)
+# the accuracy path: grader, metrics, clustering and the tools
+assert {"tinyfaces_tpu_torch.wider_eval", "tinyfaces_tpu_torch.metrics",
+        "tinyfaces_tpu_torch.clustering.cluster", "tinyfaces_tpu_torch.ops.pilresize",
+        "tinyfaces_tpu_torch.tools.cluster_templates", "tinyfaces_tpu_torch.tools.train_soak",
+        "tinyfaces_tpu_torch.tools.parity_run", "tinyfaces_tpu_torch.tools.recall_bands",
+        "tinyfaces_tpu_torch.tools.e2e_accuracy", "tinyfaces_tpu_torch.tools.ap_cost"} <= set(names)
+# the grader grades a two-image tree (one perfect detection, one miss)
+import pathlib, tempfile
+from tinyfaces_tpu_torch import wider_eval
+root = pathlib.Path(tempfile.mkdtemp())
+(root / "gt.txt").write_text("0--Ev/a.jpg\\n1\\n10 10 40 40 0 0 0 0 0 0\\n"
+                             "0--Ev/b.jpg\\n1\\n5 5 60 60 0 0 0 0 0 0\\n")
+(root / "res" / "0--Ev").mkdir(parents=True)
+(root / "res" / "0--Ev" / "a.txt").write_text("a.jpg\\n1\\n10 10 40 40 0.9\\n")
+(root / "res" / "0--Ev" / "b.txt").write_text("b.jpg\\n1\\n300 300 20 20 0.5\\n")
+scores = wider_eval.main([str(root / "gt.txt"), "--results-dir", str(root / "res")])
+assert scores["all"] == 0.5 and scores["hard~"] == 0.5, scores
+assert not any(k.split(".")[0] in banned + ("PIL",) for k, v in sys.modules.items() if v is not None)
 print(len(names))
 """
 
@@ -46,7 +65,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 39  # chip_smoke + every module of the package
+    assert int(out.stdout.split()[-1]) >= 51  # chip_smoke + every module of the package
 
 
 @pytest.mark.parametrize("name", ["ReceptiveField", "DetectorConfig", "TrainConfig", "EvalConfig"])

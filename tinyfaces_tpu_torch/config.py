@@ -86,7 +86,8 @@ class EvalConfig:
     # summation order (ROADMAP item 15).
     fold_stem: bool = True
     # Pyramid-level resampling kernel: "linear" (scale_and_translate linear,
-    # antialiased) or "pil" (ROADMAP item 7; not ported).
+    # antialiased) or "pil" (the reference's uint8 PIL bilinear,
+    # ops/pilresize.py; rgb wire only).
     resample: str = "linear"
     # Per-scale template pruning: "reference" reproduces models/utils.py:
     # 15-44 with its dead type-B branch; "natural" lets the type-B templates

@@ -3,8 +3,9 @@ val/test splits), GT-overflow accounting, the C++ augmentation engine,
 device-side targets, the batch loaders.
 
 `load_templates` mirrors tinyfaces_tpu/data/__init__.py: it reads the
-port's `templates.json` (a byte copy of the JAX package's) and rounds to 8
-decimals. Re-clustering a missing file (`clustering/`) is not ported.
+port's `templates.json` (a byte copy of the JAX package's), or re-clusters
+the train GT boxes with k-medoids (`clustering/`) when the file is missing
+and persists the result; either way it rounds to 8 decimals.
 `get_dataloader` is the reference-compatible factory.
 """
 
@@ -21,15 +22,32 @@ from tinyfaces_tpu_torch.data.wider_face import WIDERFace, parse_wider_annotatio
 TEMPLATE_FILE = Path(__file__).resolve().parent / "templates.json"
 
 
-def load_templates(template_file: str | Path | None = None) -> np.ndarray:
+def load_templates(
+    template_file: str | Path | None = None,
+    traindata: str | Path | None = None,
+    num_templates: int = 25,
+) -> np.ndarray:
     """(T, 5) template matrix [x1, y1, x2, y2, natural_scale], rounded to 8
-    decimals. Raises FileNotFoundError when the file is missing."""
+    decimals. When the file is missing, the boxes of the `traindata`
+    annotation file are clustered into `num_templates` medoids, written to
+    the file and returned as the JAX package does: (T, 4), without the
+    natural-scale column. Missing with no `traindata` raises
+    FileNotFoundError."""
     template_file = Path(template_file or TEMPLATE_FILE)
-    if not template_file.exists():
-        raise FileNotFoundError(f"{template_file} missing; re-clustering templates from the "
-                                "train boxes (clustering/) is not ported: see ROADMAP.md")
-    with open(template_file) as f:
-        templates = json.load(f)
+    if template_file.exists():
+        with open(template_file) as f:
+            templates = json.load(f)
+    else:
+        if traindata is None:
+            raise FileNotFoundError(f"{template_file} missing and no traindata given to recluster")
+        from tinyfaces_tpu_torch.clustering.cluster import compute_kmedoids
+
+        dataset = WIDERFace(traindata, np.zeros((0, 5)))
+        clustering = compute_kmedoids(dataset.get_all_bboxes(), 1, indices=num_templates,
+                                      max_clusters=num_templates)
+        templates = clustering[num_templates]["medoids"].tolist()
+        with open(template_file, "w") as f:
+            json.dump(templates, f)
     return np.round(np.array(templates, np.float64), decimals=8)
 
 
@@ -48,8 +66,7 @@ def get_dataloader(
     are iterated per image."""
     if train != (split == "train"):
         raise ValueError(f"train={train} does not fit split={split!r}")
-    del num_templates  # the JAX factory uses it only to re-cluster, which is not ported
-    templates = load_templates(template_file)
+    templates = load_templates(template_file, getattr(args, "traindata", None), num_templates)
     dataset = WIDERFace(datapath, templates, cfg=cfg,
                         dataset_root=Path(getattr(args, "dataset_root", "") or ""),
                         split=split, debug=getattr(args, "debug", False))

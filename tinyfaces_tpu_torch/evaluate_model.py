@@ -6,11 +6,13 @@ the reference evaluate_model.py:16-31):
 
 Runs the multi-scale pyramid detector over the val/test split and writes
 WIDER-format result files (<results_dir>/<event>/<img>.txt), to be graded
-by wider_eval.py. `--transfer` defaults to `jpegdct`, as in the JAX CLI:
-worker threads read each JPEG's bytes, the pack stage entropy-decodes them
-in C++ and the device reconstructs the pixels; `rgb` decodes the images
-with PIL on the host and uploads the uint8 canvas. `yuv420` and `jpegdct4`
-exit naming ROADMAP item 15, `--resample pil` item 7, and
+by `python -m tinyfaces_tpu_torch.wider_eval`. `--transfer` defaults to
+`jpegdct`, as in the JAX CLI: worker threads read each JPEG's bytes, the
+pack stage entropy-decodes them in C++ and the device reconstructs the
+pixels; `rgb` decodes the images with PIL on the host and uploads the uint8
+canvas. `--resample pil` resizes every level with the reference's uint8 PIL
+bilinear on the device (ops/pilresize.py) and needs `--transfer rgb`.
+`yuv420` and `jpegdct4` exit naming ROADMAP item 15, and
 `--data-parallel`/`--shard`/`--coordinator-address` item 13.
 `--device` (default cuda) is the port's own flag; nothing falls back to
 the CPU when there is no GPU.
@@ -79,8 +81,9 @@ def arguments(argv=None):
                         help="PIL per-scale resize (reference resampling, one forward per "
                              "scale — slow)")
     parser.add_argument("--resample", default="linear", choices=("linear", "pil"),
-                        help="fused-path level resampling; only linear is ported "
-                             "(pil: ROADMAP item 7)")
+                        help="fused-path level resampling: linear (antialiased, on the "
+                             "normalized canvas) or pil (the reference's uint8 PIL bilinear, "
+                             "byte-exact; needs --transfer rgb)")
     parser.add_argument("--template-pruning", default="reference",
                         choices=("reference", "natural"),
                         help="per-scale template pruning: reference (default) reproduces "
@@ -256,11 +259,13 @@ def run(detector, dataset, prob_thresh, nms_thresh, split, results_dir=None,
     return dets
 
 
-def _unported(args) -> str | None:
+def _refusal(args) -> str | None:
+    """Why these flags cannot run, or None."""
     if args.transfer not in ("rgb", "jpegdct"):
         return f"--transfer {args.transfer} is not ported (ROADMAP item 15); use jpegdct or rgb"
-    if args.resample != "linear":
-        return "--resample pil is not ported yet (ROADMAP item 7)"
+    if args.resample == "pil" and args.transfer != "rgb":
+        return ("resample='pil' reproduces the reference's uint8-domain resampling and needs "
+                "exact pixels on device — use transfer='rgb' (lossy wires defeat the parity point)")
     if args.data_parallel or args.shard != "batch" or args.coordinator_address:
         return "--data-parallel/--shard/--coordinator-address are not ported yet (ROADMAP item 13)"
     return None
@@ -270,7 +275,7 @@ def main(argv=None):
     args = arguments(argv)
     if args.bf16 and args.fp32:
         raise SystemExit("--bf16 and --fp32 are mutually exclusive")
-    problem = _unported(args)
+    problem = _refusal(args)
     if problem:
         raise SystemExit(problem)
     dtype = torch.float32 if args.fp32 else torch.bfloat16

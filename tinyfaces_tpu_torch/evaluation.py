@@ -15,12 +15,17 @@ Port of tinyfaces_tpu/evaluation.py on the `rgb` and `jpegdct` wires:
   * `write_results`: the WIDER per-image result tree
     <results_dir>/<event>/<img>.txt, byte for byte as the JAX writer.
 
+`EvalConfig.resample` picks the level resampling: "linear" (the JAX
+package's scale_and_translate, on the normalized canvas) or "pil" (the
+reference's uint8 PIL bilinear, ops/pilresize.py: each level resized in
+pixel space in float64, byte-equal to the host oracle, then normalized;
+`rgb` wire only).
+
 Not ported (each raises, naming the ROADMAP item that brings it): the
-`yuv420`/`jpegdct4` wires (item 15), `resample="pil"`
-(item 7), and `mesh`/`shard` (items 13, 15). The 2x level resizes and then
-convolves whatever `EvalConfig.fold_stem` says: the folded stem
-(ops/stemfold.py) equals that up to summation order (config.py:85-89) and
-is in ROADMAP item 15.
+`yuv420`/`jpegdct4` wires (item 15) and `mesh`/`shard` (items 13, 15). The
+2x level resizes and then convolves whatever `EvalConfig.fold_stem` says:
+the folded stem (ops/stemfold.py) equals that up to summation order
+(config.py:85-89) and is in ROADMAP item 15.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from tinyfaces_tpu_torch.models.resnet import ARCH_STAGES
 from tinyfaces_tpu_torch.ops.decode import decode_scores, valid_template_mask
 from tinyfaces_tpu_torch.ops.jpeg import dct_batch_to_normalized
 from tinyfaces_tpu_torch.ops.nms import batched_nms_padded
+from tinyfaces_tpu_torch.ops.pilresize import max_taps, resize_pil_batch
 from tinyfaces_tpu_torch.ops.resize import resize_batch
 from tinyfaces_tpu_torch.utils.convert import from_npz, from_reference_pth
 
@@ -183,10 +189,13 @@ class PyramidDetector:
             raise ValueError("mesh/shard (multi-device pyramid) is not ported yet: ROADMAP "
                              "item 13 (batch sharding) and item 15 (spatial sharding)")
         self.ec = ec or EvalConfig()
-        if self.ec.resample == "pil":
-            raise ValueError("resample='pil' is not ported yet: ROADMAP item 7")
-        if self.ec.resample != "linear":
+        if self.ec.resample not in ("linear", "pil"):
             raise ValueError(f"unknown resample kernel {self.ec.resample!r}")
+        if self.ec.resample == "pil" and transfer != "rgb":
+            raise ValueError(
+                "resample='pil' reproduces the reference's uint8-domain "
+                "resampling and needs exact pixels on device — use "
+                "transfer='rgb' (lossy wires defeat the parity point)")
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.dtype = model.dtype or torch.float32
@@ -318,6 +327,7 @@ class PyramidDetector:
         # come from the same header parse.)
         meta = np.concatenate([np.stack([packed.hs, packed.ws], 1).astype(np.int64),
                                self._level_sizes(packed.hs, packed.ws, scales).reshape(b, -1)], 1)
+        taps = self._pil_taps(meta, scales, packed.h0p, packed.w0p) if self.ec.resample == "pil" else None
         meta_t = torch.from_numpy(meta)
         if self._pinned():
             meta_t = meta_t.pin_memory()
@@ -326,7 +336,8 @@ class PyramidDetector:
         self._mark("upload")
         out = self._fused_pyramid(images_d, meta_d[:, :2], meta_d[:, 2:].reshape(b, len(scales), 2),
                                   scales=scales, h0p=packed.h0p, w0p=packed.w0p,
-                                  prob_thresh=float(prob_thresh), nms_thresh=float(nms_thresh))
+                                  prob_thresh=float(prob_thresh), nms_thresh=float(nms_thresh),
+                                  pil_taps=taps)
         if not self._pinned():
             return DeviceResult(out, None)
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -336,30 +347,56 @@ class PyramidDetector:
         event.record()
         return DeviceResult(host, event)
 
+    @staticmethod
+    def _level_canvas(h0p: int, w0p: int, s: float) -> tuple[int, int]:
+        f = 2.0**s
+        return _round_up_mult(int(round(h0p * f)), 32), _round_up_mult(int(round(w0p * f)), 32)
+
+    def _pil_taps(self, meta: np.ndarray, scales: tuple, h0p: int, w0p: int) -> list:
+        """Per level, the (rows, columns) tap bounds of the PIL weights
+        (pilresize.max_taps) from the host's copy of the sizes, so building
+        them needs no device sync."""
+        sizes = meta[:, :2]
+        levels = meta[:, 2:].reshape(meta.shape[0], len(scales), 2)
+        return [tuple(max_taps(sizes[:, a], np.clip(levels[:, si, a], 1, pad))
+                      for a, pad in enumerate(self._level_canvas(h0p, w0p, s)))
+                for si, s in enumerate(scales)]
+
+    def _normalize_nchw(self, pixels: torch.Tensor) -> torch.Tensor:
+        """uint8 (B, H, W, 3) -> the model's dtype, normalized, (B, 3, H, W)."""
+        return normalize_images(pixels, dtype=self.dtype).permute(0, 3, 1, 2).contiguous()
+
     def _fused_pyramid(self, images, size_hw, level_hw, *, scales: tuple, h0p: int, w0p: int,
-                       prob_thresh: float, nms_thresh: float) -> torch.Tensor:
+                       prob_thresh: float, nms_thresh: float, pil_taps=None) -> torch.Tensor:
         """Whole pyramid for one batch: the normalized canvas from either
         wire, resize of every level, forward, decode, then one cross-scale
-        NMS per image."""
-        # normalize commutes with the (linear) resize; straight into the
-        # model's compute dtype, as the JAX program does
-        if self.transfer == "jpegdct":
+        NMS per image. With resample="pil" the canvas stays in pixels: each
+        level is resized on the uint8 grid, then normalized."""
+        pil = self.ec.resample == "pil"
+        if pil:
+            # PIL's uint8 rounding does not commute with normalization.
+            x0 = images.permute(0, 3, 1, 2).to(torch.float64)
+        elif self.transfer == "jpegdct":
+            # normalize commutes with the (linear) resize; straight into the
+            # model's compute dtype, as the JAX program does
             x0 = dct_batch_to_normalized({"_wire": images}, h0p, w0p, dtype=self.dtype)
+            x0 = x0.permute(0, 3, 1, 2).contiguous()
         else:
-            x0 = normalize_images(images, dtype=self.dtype)
-        x0 = x0.permute(0, 3, 1, 2).contiguous()
+            x0 = self._normalize_nchw(images)
         self._mark("unpack")
         st = int(self.stride)
         all_b, all_s, all_v = [], [], []
         for si, s in enumerate(scales):
             f = 2.0**s
-            thp = _round_up_mult(int(round(h0p * f)), 32)
-            twp = _round_up_mult(int(round(w0p * f)), 32)
+            thp, twp = self._level_canvas(h0p, w0p, s)
             level = torch.stack([level_hw[:, si, 0].clamp(1, thp), level_hw[:, si, 1].clamp(1, twp)], 1)
             if f == 1.0 and (thp, twp) == (h0p, w0p):
-                # At scale 1 every image's level is its own size, and the
-                # linear resize at scale 1 is exactly the identity.
-                xs = x0
+                # At scale 1 every image's level is its own size, and both
+                # resizes at scale 1 are exactly the identity.
+                xs = self._normalize_nchw(images) if pil else x0
+            elif pil:
+                xs = resize_pil_batch(x0, (thp, twp), size_hw, level, pil_taps[si])
+                xs = self._normalize_nchw(xs.to(torch.uint8).permute(0, 2, 3, 1))
             else:
                 xs = resize_batch(x0, (thp, twp), size_hw, level)
             self._mark(f"resize {s}")

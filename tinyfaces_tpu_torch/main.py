@@ -41,6 +41,7 @@ from tinyfaces_tpu_torch.config import DetectorConfig, TrainConfig
 from tinyfaces_tpu_torch.data import get_dataloader
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
 from tinyfaces_tpu_torch.models.resnet import ARCH_STAGES
+from tinyfaces_tpu_torch.ops import assignment_kernel
 from tinyfaces_tpu_torch.parallel.distributed import GracefulStop
 from tinyfaces_tpu_torch.trainer import (Trainer, load_checkpoint, save_checkpoint,
                                          wait_for_checkpoints)
@@ -220,6 +221,10 @@ def debug_visualize(dataset, device: torch.device) -> None:
 
 def main(argv=None) -> None:
     run(arguments(argv))
+    # For a parent that drives this CLI as a child process (tools/train_soak.py):
+    # the GT-assignment kernel's launches in this process.
+    print(f"kernel launches: dense_assignment_reductions {assignment_kernel.launch_count}",
+          flush=True)
 
 
 if __name__ == "__main__":
