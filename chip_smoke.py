@@ -115,17 +115,51 @@ this one, other/this/this/other, at phase 2's timed scenes):
      AP 1.0 for the val GT written as a result tree and 0.0 for an empty
      tree. Every child must exit 0 and every AP lie in [0, 1].
 
-Phases run in the order 0-7, 9-13, 15, 16, 8, 14, 17 (9-13 and 16 need
-phase 5's model).
+ 18. (A) phase 8's deterministic run again through `main.run` with
+     `--num-processes 1 --coordinator-address file://...`, a one-rank NCCL
+     group: per-step losses bit-equal to phase 8's, K1 once per step, the
+     exit barrier reached with the group up;
+ 19. (B) world 2 at full width on one card, gloo moving the CUDA tensors:
+     two child processes each take 6 rows of global batches of 12
+     (ResNet-101, 500x500, fp32, deterministic cuDNN, the real templates,
+     G=192) through the loader's rank slices and run 3 Trainer steps with
+     nothing timed but the step, then 3 more with every collective timed
+     apart; where there are 2+ cards, world = cards on NCCL, a card per
+     rank, as well. The ranks' losses, parameters and BN statistics are
+     bit-equal after every step. World 1 then replays each of the 3 steps
+     in this process from rank 0's state before it (model, optimizer,
+     step), so that every step is tests/test_parallel.py's case: losses
+     within rtol 1e-5 and BN statistics 1e-4 of their largest magnitude
+     at every step, parameters atol 5e-3 after steps 1 and 2 and 0.15
+     after step 0 (the first step from the seeded weights is
+     ill-conditioned at this depth), with world 1's replays on cuDNN's
+     default algorithms and with world N's BatchNorm code printed beside
+     as references; K1 launches once per rank per step; ms/step of world N and
+     world 1 (the untimed-collective pass), the collectives' ms per step
+     by kind, and peak memory per rank;
+ 20. (C) the training CLI's loop in two ranks on gloo on one card, SIGTERM
+     to rank 1 alone in epoch 1: both stop after epoch 1, rank 0 writes
+     the one checkpoint, both pass the exit barrier, neither hangs;
+ 21. (D) phase 7's sweep data-parallel over every card (one replica each)
+     byte-equal to the single-card sweep of the same pieces, a warm batch
+     of 32 images timed on every card and on one, and by two
+     coordinated processes (a gloo group that carries the exit barrier)
+     writing disjoint halves whose union is phase 7's tree byte for byte.
+     Children of phases 19-21 run `python chip_smoke.py --worker ...`,
+     each under a time limit.
+
+Phases run in the order 0-4, 19, 20, 5-7, 21, 9-13, 15, 16, 8, 18, 14, 17
+(9-13, 16 and 21 need phase 5's model, 18 phase 8's tree and run).
 
 The kernel build and the two host builds (the C++ engine, the JPEG
 decoder) run side by side in phase 1. The second-to-last line of output is
 the card's `nvidia-smi` name and power limit; before it, one JSON line
 describes each kernel (its launches on each path, error, times, bound),
-before that one JSON line holds phases 15-17's accuracy numbers, before
-that one phases 9-14's jpegdct numbers, before that one phase 8's training
-numbers and before that one the inference numbers; the last line is
-{"ok": true, "device": {...}}.
+before that one JSON line holds phases 18-21's multi-process numbers,
+before that one phases 15-17's accuracy numbers, before that one phases
+9-14's jpegdct numbers, before that one phase 8's
+training numbers and before that one the inference numbers; the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -135,9 +169,12 @@ import contextlib
 import copy
 import ctypes
 import gc
+import hashlib
 import json
 import math
+import os
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -147,6 +184,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from tinyfaces_tpu_torch import evaluate_model
@@ -156,12 +194,15 @@ from tinyfaces_tpu_torch.data import WIDERFace, jpegdct, load_templates, native,
 from tinyfaces_tpu_torch.data.loader import PrefetchLoader
 from tinyfaces_tpu_torch.data.targets import normalize_images
 from tinyfaces_tpu_torch.evaluation import PyramidDetector, _round_up, pyramid_level_sizes_np
+from tinyfaces_tpu_torch.models import resnet
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
 from tinyfaces_tpu_torch.ops import assignment_kernel
 from tinyfaces_tpu_torch.ops import jpeg as jpeg_ops
 from tinyfaces_tpu_torch.ops import pilresize
 from tinyfaces_tpu_torch.ops.assignment import compose_targets, compute_pad_mask
 from tinyfaces_tpu_torch.ops.resize import resize_batch
+from tinyfaces_tpu_torch.parallel import distributed
+from tinyfaces_tpu_torch.parallel.mesh import local_devices
 from tinyfaces_tpu_torch.serving import DetectionService
 from tinyfaces_tpu_torch.trainer import Trainer, load_checkpoint, save_checkpoint
 from tinyfaces_tpu_torch.utils import cuda_build
@@ -791,18 +832,29 @@ def serve(det: PyramidDetector, reqs: list) -> tuple[int, int]:
     return pairs, unpaired
 
 
-def phase_sweep_and_service(calibrated: TinyFacesDetector, templates_np, dev: torch.device):
-    import shutil
+SWEEP_DIR = ROOT / "build" / "chip_smoke" / "val_results"
 
-    rng = np.random.default_rng(7)
-    sizes = [(300, 400)] * 24 + [(480, 360)] * 24 + [(200, 300)] * 16  # 3 buckets
-    items = [(im, f"{i % 4}--Event{i % 4}/smoke_{i}.jpg")
-             for i, im in enumerate(pink_images(rng, sizes))]
-    out_dir = ROOT / "build" / "chip_smoke" / "val_results"
-    shutil.rmtree(out_dir, ignore_errors=True)
+
+def sweep_items(rng) -> list:
+    """Phase 7's 64 (image, img_path) items of mixed sizes (3 buckets)."""
+    sizes = [(300, 400)] * 24 + [(480, 360)] * 24 + [(200, 300)] * 16
+    return [(im, f"{i % 4}--Event{i % 4}/smoke_{i}.jpg")
+            for i, im in enumerate(pink_images(rng, sizes))]
+
+
+def bf16_copy(calibrated: TinyFacesDetector, dev: torch.device) -> TinyFacesDetector:
     bf16 = TinyFacesDetector(dtype=torch.bfloat16).to(dev)
     bf16.load_state_dict(calibrated.state_dict())
-    det = PyramidDetector(bf16, templates_np, DetectorConfig(), EvalConfig(), device=dev)
+    return bf16
+
+
+def phase_sweep_and_service(calibrated: TinyFacesDetector, templates_np, dev: torch.device):
+    rng = np.random.default_rng(7)
+    items = sweep_items(rng)
+    out_dir = SWEEP_DIR
+    shutil.rmtree(out_dir, ignore_errors=True)
+    det = PyramidDetector(bf16_copy(calibrated, dev), templates_np, DetectorConfig(), EvalConfig(),
+                          device=dev)
     evaluate_model.run(det, MemoryDataset(items), 0.03, 0.3, "val", results_dir=out_dir,
                        eval_batch=32, workers=4)
     files, n_dets = check_result_tree(out_dir, len(items))
@@ -871,7 +923,21 @@ def step_records(path: Path) -> tuple[list, list]:
             [r for r in records if r.get("event") == "epoch_end"])
 
 
-def phase_train_cli(templates_np, dev: torch.device, name: str) -> tuple[dict, int]:
+def run_train_cli(ann: Path, dataset, dev: torch.device, run_dir: Path, *extra: str):
+    """`main.run` over `dataset` in `run_dir` with the CLI's defaults and
+    `extra`, entered with TF32 on (as cuDNN has it in a fresh process): the
+    fp32 CLI must turn it off. Returns the Trainer."""
+    run_dir.mkdir()
+    args = train_cli.arguments([str(ann), str(ann), "--device", str(dev), *extra])
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    with contextlib.chdir(run_dir):  # weights/ goes under the run's directory
+        trainer = train_cli.run(args, dataset)
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "the fp32 CLI left TF32 on")
+    return trainer
+
+
+def phase_train_cli(templates_np, dev: torch.device, name: str) -> tuple[dict, int, Path, WIDERFace]:
     out = ROOT / "build" / "chip_smoke" / "train_cli"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
@@ -893,15 +959,7 @@ def phase_train_cli(templates_np, dev: torch.device, name: str) -> tuple[dict, i
         batch_ms.append(1000.0 * (time.perf_counter() - t0))
 
     def cli(run_dir: Path, *extra: str):
-        run_dir.mkdir()
-        args = train_cli.arguments([str(ann), str(ann), "--device", str(dev), *extra])
-        # TF32 on, as cuDNN has it in a fresh process: the fp32 CLI must turn it off.
-        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
-        with contextlib.chdir(run_dir):  # weights/ goes under the run's directory
-            trainer = train_cli.run(args, dataset)
-        check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
-              "the fp32 CLI left TF32 on")
-        return trainer
+        return run_train_cli(ann, dataset, dev, run_dir, *extra)
 
     overflow.reset()
     native.counters.update(samples=0, seconds=0.0)
@@ -984,7 +1042,7 @@ def phase_train_cli(templates_np, dev: torch.device, name: str) -> tuple[dict, i
           f"peak memory {result['peak_gib']:.2f} GiB, {dropped} GT boxes dropped, "
           f"resumed losses within {rel:.2g} (deterministic cuDNN: "
           f"{[round(v, 2) for v in result['deterministic_ms_per_step']]} ms/step) ({name})", flush=True)
-    return result, launches
+    return result, launches, ann, dataset
 
 
 # --- the jpegdct wire: phases 9-14 ----------------------------------------
@@ -1481,7 +1539,486 @@ def phase_closed_loop(dev: torch.device, name: str) -> tuple[dict, int]:
     return {"card": name, "e2e": e2e, "ap_cost": configs, "grader": graded}, e2e["k1_launches"]
 
 
+# --- multi-process training and evaluation: phases 18-21 (A-D) -----------
+
+DIST_DIR = ROOT / "build" / "chip_smoke" / "dist"
+DIST_STEPS = 3  # phase 19's checked train steps per rank; as many again with the collectives timed
+STOP_IMAGES = 12  # phase 20's train tree: one step of 12 per epoch
+
+
+def fresh_store(name: str) -> str:
+    """A `file://` init address whose file does not exist yet."""
+    DIST_DIR.mkdir(parents=True, exist_ok=True)
+    path = DIST_DIR / f"{name}.store"
+    path.unlink(missing_ok=True)
+    return f"file://{path}"
+
+
+def spawn_ranks(tag: str, argvs: list, timeout: int = 300) -> list[str]:
+    """One child `python chip_smoke.py --worker ...` per argv, started
+    together; each child's output goes to DIST_DIR/<tag>_<rank>.log. A
+    child that exits non-zero or is still running at `timeout` fails the
+    phase; every child is stopped before this returns."""
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for argv in argvs:
+            logs.append(DIST_DIR / f"{tag}_{len(logs)}.log")
+            with open(logs[-1], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--worker", *argv],
+                    cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = [log.read_text() for log in logs]
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print("\n".join(out.splitlines()[-40:]), flush=True)
+        check(p.returncode == 0, f"{tag} rank {r} exited {p.returncode} (killed at the {timeout} s "
+                                 f"limit if negative); see {logs[r]}")
+    print(f"  {tag}: {len(procs)} ranks exit 0 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return outs
+
+
+def phase_world1_group(ann: Path, dataset, dev: torch.device, name: str) -> tuple[dict, int]:
+    """Phase 18 (A): phase 8's deterministic run again through `main.run`
+    with `--num-processes 1 --coordinator-address file://...`, an NCCL
+    group of one rank: its per-step losses are bit-equal to phase 8's, K1
+    launches once per step, and the run leaves through the exit barrier
+    with the group up."""
+    out = ROOT / "build" / "chip_smoke" / "train_cli"
+    shutil.rmtree(out / "world1", ignore_errors=True)
+    (out / "world1.jsonl").unlink(missing_ok=True)
+    barriers = []
+    real_barrier = distributed.barrier_at_exit
+
+    def spy(label: str) -> None:
+        barriers.append((label, dist.is_initialized() and dist.get_backend(),
+                         dist.is_initialized() and dist.get_world_size()))
+        real_barrier(label)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    distributed.barrier_at_exit = spy
+    assignment_kernel.launch_count = 0
+    t0 = time.perf_counter()
+    try:
+        trainer = run_train_cli(ann, dataset, dev, out / "world1", "--epochs", "2", "--save-every", "1",
+                                "--metrics-log", str(out / "world1.jsonl"), "--num-processes", "1",
+                                "--coordinator-address", fresh_store("world1"))
+    finally:
+        distributed.barrier_at_exit = real_barrier
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize(dev)
+    launches = assignment_kernel.launch_count
+    wall = time.perf_counter() - t0
+    check(barriers == [("train_done", "nccl", 1)] and not dist.is_initialized(),
+          f"exit barriers {barriers}, group still up: {dist.is_initialized()}")
+    check(launches == trainer.step == 2 * (len(dataset) // trainer.tc.batch_size),
+          f"{launches} K1 launches in {trainer.step} steps")
+    pairs = lambda recs: [(r["epoch"], r["step"], r["loss_cls_step"], r["loss_reg_step"])  # noqa: E731
+                          for r in recs]
+    got, want = pairs(step_records(out / "world1.jsonl")[0]), pairs(step_records(out / "ref.jsonl")[0])
+    check(got == want, f"world-1 group losses differ from phase 8's deterministic run: {got} vs {want}")
+    print(f"world 1 through the CLI on an NCCL group: {trainer.step} steps, losses bit-equal to "
+          f"phase 8's deterministic run, K1 {launches} launches, exit barrier reached "
+          f"({wall:.1f} s; {name})", flush=True)
+    return {"steps": trainer.step, "losses_bit_equal": True, "wall_s": wall}, launches
+
+
+def dist_trainer(dev: torch.device | str, rank: int, world: int) -> tuple[Trainer, PrefetchLoader]:
+    """Phase 19's trainer and loader on one rank: full-width ResNet-101
+    (seeded weights, fp32), global batches of 12 at 500x500 with G=192
+    (make_dataset), this rank's rows of each."""
+    cfg, tc = DetectorConfig(), TrainConfig()
+    dataset = make_dataset(cfg, DIST_STEPS * tc.batch_size, seed=11)
+    model = init_model(TinyFacesDetector(), torch.Generator().manual_seed(0))
+    trainer = Trainer(model, cfg, tc, load_templates(), device=dev, seed=0, augment="python")
+    trainer.setup(steps_per_epoch=DIST_STEPS)
+    loader = PrefetchLoader(dataset, tc.batch_size, device=trainer.device, workers=4, seed=5,
+                            rank=rank, world=world)
+    return trainer, loader
+
+
+def host_state(trainer: Trainer) -> dict:
+    return {k: v.detach().to("cpu", copy=True) for k, v in trainer.model.state_dict().items()}
+
+
+def timed_step(trainer: Trainer, batch: dict) -> tuple[list, float]:
+    """One Trainer.train_step: its three losses and host ms. Under a group
+    every rank starts the clock together (rank 0 keeps more state between
+    steps, and the others would time their wait for it)."""
+    torch.cuda.synchronize(trainer.device)
+    if distributed.world() > 1:
+        distributed.barrier()
+    t0 = time.perf_counter()
+    lb = trainer.train_step(batch)
+    losses = [x.item() for x in lb]  # waits for the step
+    return losses, 1000.0 * (time.perf_counter() - t0)
+
+
+def worker_dist_steps(store: str, world: str, rank: str, backend: str, out: str) -> None:
+    """Phase 19's work on one rank of world N, on deterministic cuDNN:
+    DIST_STEPS steps with nothing timed but the step, recording per step
+    the losses, host ms and a digest of the parameters and buffers, and on
+    rank 0 the state before each step (model, optimizer, step); then the
+    next epoch's DIST_STEPS steps with every collective bracketed by device
+    syncs (distributed.comm_ms), recording their ms by kind."""
+    torch.backends.cudnn.deterministic = True
+    rank_, world_ = int(rank), int(world)
+    distributed.initialize(store, world_, rank_, backend=backend, device="cuda")
+    trainer, loader = dist_trainer("cuda", rank_, world_)
+    assignment_kernel.launch_count = 0
+    torch.cuda.reset_peak_memory_stats(trainer.device)
+    res = {"losses": [], "ms": [], "digests": [], "before": [], "comm_ms": [], "comm_step_ms": []}
+    for batch in loader:
+        if rank_ == 0:
+            res["before"].append({"model": host_state(trainer), "step": trainer.step,
+                                  "optimizer": copy.deepcopy(trainer.opt.state_dict())})
+        losses, ms = timed_step(trainer, batch)
+        res["losses"].append(losses)
+        res["ms"].append(ms)
+        state = host_state(trainer)
+        res["digests"].append(hashlib.sha256(b"".join(v.numpy().tobytes() for v in state.values()))
+                              .hexdigest())
+        if rank_ == 0:
+            res["after"] = state
+    distributed.comm_ms = {}
+    try:
+        for batch in loader:
+            before = dict(distributed.comm_ms)
+            res["comm_step_ms"].append(timed_step(trainer, batch)[1])
+            res["comm_ms"].append({k: v - before.get(k, 0.0) for k, v in distributed.comm_ms.items()})
+    finally:
+        distributed.comm_ms = None
+    res.update(launches=assignment_kernel.launch_count, steps=trainer.step,
+               rows=int(batch["flip"].shape[0]),
+               peak_gib=torch.cuda.max_memory_allocated(trainer.device) / 2**30)
+    torch.save(res, out)
+    distributed.barrier_at_exit("dist_steps_done")
+
+
+class GlobalBatchNormOneRank:
+    """Stands in for `parallel.distributed` in models/resnet.py: one
+    process takes world N's BatchNorm path (the merge of every rank's
+    statistics, autograd's backward) over its whole batch."""
+
+    world = staticmethod(lambda: 2)
+    rank = staticmethod(lambda: 0)
+    all_reduce_sum = staticmethod(lambda x: x)
+
+
+def replay_world1(dev: torch.device, payloads: list, deterministic: bool,
+                  global_bn: bool = False) -> dict:
+    """World 1 of phase 19: each global batch's step on this process's card
+    from world N's state before it (model, optimizer, step), so that every
+    step is tests/test_parallel.py's case, one step from one state. Per
+    step the losses, host ms and the state after. `global_bn` runs world
+    N's BatchNorm code in place of cuDNN's."""
+    previous = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    if global_bn:
+        resnet.distributed = GlobalBatchNormOneRank
+    try:
+        trainer, loader = dist_trainer(dev, 0, 1)
+        assignment_kernel.launch_count = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = {"losses": [], "ms": [], "after": []}
+        for batch, payload in zip(loader, payloads, strict=True):
+            trainer.restore(copy.deepcopy(payload))  # the optimizer may alias host tensors
+            losses, ms = timed_step(trainer, batch)
+            res["losses"].append(losses)
+            res["ms"].append(ms)
+            res["after"].append(host_state(trainer))
+        res.update(launches=assignment_kernel.launch_count,
+                   peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    finally:
+        torch.backends.cudnn.deterministic = previous
+        resnet.distributed = distributed
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def state_diff(a: dict, b: dict) -> tuple[float, float]:
+    """Largest |a - b| over the parameters, and over the BN statistics as a
+    fraction of each tensor's largest magnitude (at least 1)."""
+    param_err = bn_err = 0.0
+    for k, v in a.items():
+        err = float((b[k] - v).abs().max())
+        if k.endswith(("running_mean", "running_var")):
+            bn_err = max(bn_err, err / max(1.0, float(b[k].abs().max())))
+        else:
+            param_err = max(param_err, err)
+    return param_err, bn_err
+
+
+def step_diffs(a: dict, b: dict) -> dict:
+    """Per step: the largest relative difference of the three losses, and
+    state_diff of the states after it."""
+    diffs = [state_diff(x, y) for x, y in zip(a["after"], b["after"])]
+    return {"losses": [float(np.max(np.abs(np.subtract(x, y)) / np.abs(y)))
+                       for x, y in zip(a["losses"], b["losses"])],
+            "param": [d[0] for d in diffs], "bn": [d[1] for d in diffs]}
+
+
+# World N against world 1, one step from the same state, at every step.
+DIST_LOSS_RTOL = 1e-5  # tests/test_parallel.py's
+DIST_BN_RTOL = 1e-4  # of each tensor's largest magnitude (at least 1): its atol 1e-4
+DIST_PARAM_ATOL = 5e-3  # steps 1 and 2; tests/test_parallel.py's 5e-5 widened, see compare_world
+STEP0_PARAM_ATOL = 0.15  # the first step from the seeded weights, see compare_world
+
+
+def compare_world(tag: str, ranks: list, dev: torch.device) -> dict:
+    """The ranks' losses, parameters and BN statistics bit-equal to each
+    other after every step; then world 1 replays every step from rank 0's
+    state before it (replay_world1) on deterministic cuDNN, and twice more
+    for reference: on cuDNN's default algorithms, and with world N's
+    BatchNorm code in one process. World N against the deterministic
+    replay, at every step: losses within DIST_LOSS_RTOL, BN statistics
+    DIST_BN_RTOL, parameters DIST_PARAM_ATOL, except after the first step
+    from the seeded weights, STEP0_PARAM_ATOL. That step's backward is
+    ill-conditioned at this depth: swapping world 1's cuDNN BatchNorm for
+    world N's code in one process moves the stem's update (3.3) by ~0.06,
+    where cuDNN's other algorithms move any parameter by ~8e-4; from the
+    next state on, both references and world N agree to ~5e-4."""
+    for r in ranks[1:]:
+        check(r["losses"] == ranks[0]["losses"], f"{tag}: the ranks' losses differ")
+        check(r["digests"] == ranks[0]["digests"], f"{tag}: the ranks' parameters or buffers differ")
+    world_n = {"losses": ranks[0]["losses"],
+               "after": [b["model"] for b in ranks[0]["before"][1:]] + [ranks[0]["after"]]}
+    one = replay_world1(dev, ranks[0]["before"], deterministic=True)
+    default = replay_world1(dev, ranks[0]["before"], deterministic=False)
+    own_bn = replay_world1(dev, ranks[0]["before"], deterministic=True, global_bn=True)
+    noise, bn_code = step_diffs(default, one), step_diffs(own_bn, one)
+    got = step_diffs(world_n, one)
+    fmt = lambda v: [f"{x:.3g}" for x in v]  # noqa: E731
+    print(f"  {tag} against world 1, one step from the same state at each of {DIST_STEPS} steps: "
+          f"losses {fmt(got['losses'])} rel, parameters {fmt(got['param'])}, BN statistics "
+          f"{fmt(got['bn'])} of their largest magnitude; world 1 against itself on default cuDNN: "
+          f"losses {fmt(noise['losses'])}, parameters {fmt(noise['param'])}, BN statistics "
+          f"{fmt(noise['bn'])}; with world N's BatchNorm code: losses {fmt(bn_code['losses'])}, "
+          f"parameters {fmt(bn_code['param'])}, BN statistics {fmt(bn_code['bn'])}", flush=True)
+    bounds = [STEP0_PARAM_ATOL] + [DIST_PARAM_ATOL] * (DIST_STEPS - 1)
+    check(max(got["losses"]) <= DIST_LOSS_RTOL and max(got["bn"]) <= DIST_BN_RTOL
+          and all(p <= b for p, b in zip(got["param"], bounds)),
+          f"{tag}: against world 1, losses {fmt(got['losses'])} (rtol {DIST_LOSS_RTOL}), parameters "
+          f"{fmt(got['param'])} (atol {bounds}), BN statistics {fmt(got['bn'])} (rtol {DIST_BN_RTOL})")
+    check(all(r["launches"] == r["steps"] == 2 * DIST_STEPS for r in ranks) and one["launches"] == DIST_STEPS,
+          f"{tag}: K1 launches per rank {[r['launches'] for r in ranks]} in {2 * DIST_STEPS} steps, "
+          f"world 1 {one['launches']} in {DIST_STEPS}")
+    step_ms = float(np.median([m for r in ranks for m in r["ms"][1:]]))
+    one_ms = float(np.median(one["ms"][1:]))
+    kinds = sorted({k for r in ranks for c in r["comm_ms"] for k in c})
+    comm = {k: float(np.median([c.get(k, 0.0) for r in ranks for c in r["comm_ms"]])) for k in kinds}
+    timed_ms = float(np.median([m for r in ranks for m in r["comm_step_ms"]]))
+    return {"world": len(ranks), "rows_per_rank": ranks[0]["rows"], "ms_per_step": step_ms,
+            "img_per_s": 1000.0 * TrainConfig().batch_size / step_ms,
+            "world1_ms_per_step": one_ms, "world1_img_per_s": 1000.0 * TrainConfig().batch_size / one_ms,
+            "world1_peak_gib": one["peak_gib"],
+            "comm_ms_per_step": comm, "comm_timed_ms_per_step": timed_ms,
+            "comm_share_of_timed_step": sum(comm.values()) / timed_ms,
+            "vs_world1": got, "world1_default_cudnn_vs_deterministic": noise,
+            "world1_global_bn_code_vs_cudnn_bn": bn_code,
+            "launches_per_rank": [r["launches"] for r in ranks],
+            "world1_replay_launches": one["launches"] + default["launches"] + own_bn["launches"],
+            "peak_gib_per_rank": [r["peak_gib"] for r in ranks]}
+
+
+def phase_world_n(dev: torch.device, name: str) -> tuple[dict, int]:
+    """Phase 19 (B): world 2 on gloo with the tensors on the card (so two
+    ranks may share one) and, where there are 2+ cards, world = cards on
+    NCCL with a card per rank; each against world 1 of the same global
+    batches replayed step by step (compare_world)."""
+    result, launches = {"card": name}, 0
+    cards = torch.cuda.device_count()
+    runs = [("gloo", 2)] + ([("nccl", cards)] if cards >= 2 and 12 % cards == 0 else [])
+    for backend, world in runs:
+        tag = f"{backend}_world{world}"
+        store = fresh_store(tag)
+        outs = [DIST_DIR / f"{tag}_{r}.pt" for r in range(world)]
+        spawn_ranks(tag, [["dist_steps", store, str(world), str(r), backend, str(outs[r])]
+                          for r in range(world)])
+        res = compare_world(tag, [torch.load(o, weights_only=True, map_location="cpu") for o in outs],
+                            dev)
+        launches += sum(res["launches_per_rank"]) + res["world1_replay_launches"]
+        result[tag] = res
+        print(f"world {world} on {backend} ({'one card' if backend == 'gloo' else 'a card per rank'}): "
+              f"{res['rows_per_rank']} rows per rank, ranks bit-equal, every step held to world 1; "
+              f"{res['ms_per_step']:.2f} ms/step ({res['img_per_s']:.2f} img/s) against world 1's "
+              f"{res['world1_ms_per_step']:.2f} (deterministic cuDNN, nothing else timed); with the "
+              f"collectives timed apart, {res['comm_timed_ms_per_step']:.2f} ms/step of which "
+              f"{json.dumps({k: round(v, 3) for k, v in res['comm_ms_per_step'].items()})} ms "
+              f"({100 * res['comm_share_of_timed_step']:.1f}%); peak "
+              f"{[round(g, 2) for g in res['peak_gib_per_rank']]} GiB per rank, world 1 "
+              f"{res['world1_peak_gib']:.2f}; K1 {res['launches_per_rank']} launches per rank ({name})",
+              flush=True)
+    return result, launches
+
+
+class SignalledTrainSet(MemoryTrainSet):
+    """Sends SIGTERM to this process at its first decode of epoch 1."""
+
+    sent = False
+
+    def _decode(self, idx: int) -> np.ndarray:
+        if self.epoch == 1 and not SignalledTrainSet.sent:
+            SignalledTrainSet.sent = True
+            os.kill(os.getpid(), signal.SIGTERM)
+        return super()._decode(idx)
+
+
+def stop_tree_sizes() -> list:
+    return [TRAIN_TREE_SIZES[i % 3] for i in range(STOP_IMAGES)]
+
+
+def worker_stop(store: str, rank: str, out_dir: str) -> None:
+    out = Path(out_dir)
+    ann = out / "wider_face_train_bbx_gt.txt"
+    images = pink_images(np.random.default_rng(81), stop_tree_sizes())
+    cls = SignalledTrainSet if rank == "1" else MemoryTrainSet
+    dataset = cls(ann, images, load_templates(), DetectorConfig())
+    args = train_cli.arguments([str(ann), str(ann), "--device", "cuda", "--epochs", "4",
+                                "--save-every", "10", "--workers", "4", "--num-processes", "2",
+                                "--process-id", rank, "--coordinator-address", store])
+    assignment_kernel.launch_count = 0
+    with contextlib.chdir(out):
+        trainer = train_cli.run(args, dataset, backend="gloo")
+    print(json.dumps({"rank": int(rank), "step": trainer.step,
+                      "launches": assignment_kernel.launch_count}), flush=True)
+
+
+def phase_agreed_stop(name: str) -> tuple[dict, int]:
+    """Phase 20 (C): the training CLI's loop in two ranks on gloo on one
+    card over a 12-image tree of phase 8's kind (one step per epoch); rank
+    1 alone gets SIGTERM in epoch 1. Both ranks stop after epoch 1, both
+    call the checkpoint save (rank 0 writes checkpoint_2), both pass the
+    exit barrier, and neither hangs."""
+    out = DIST_DIR / "stop"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    train_annotations(out, np.random.default_rng(82), stop_tree_sizes())
+    outs = spawn_ranks("stop", [["stop", fresh_store("stop"), str(r), str(out)] for r in range(2)])
+    done = [json.loads([line for line in o.splitlines() if line.startswith('{"rank"')][-1])
+            for o in outs]
+    check([d["step"] for d in done] == [2, 2] and [d["launches"] for d in done] == [2, 2],
+          f"ranks stopped at steps {[d['step'] for d in done]} with K1 launches "
+          f"{[d['launches'] for d in done]}, want 2 each (epochs 0 and 1)")
+    check("will checkpoint and stop" in outs[1] and "will checkpoint and stop" not in outs[0],
+          "only rank 1 was to be signalled")
+    written = sorted(p.name for p in (out / "weights").iterdir())
+    check(written == ["checkpoint_2"] and load_checkpoint(out / "weights" / "checkpoint_2")["epoch"] == 2,
+          f"checkpoints {written}")
+    print(f"agreed stop: SIGTERM to rank 1 in epoch 1, both ranks stopped after epoch 1 (step 2), "
+          f"checkpoint_2 written by rank 0, both through the exit barrier ({name})", flush=True)
+    return ({"stopped_at_step": [d["step"] for d in done], "checkpoints": written},
+            sum(d["launches"] for d in done))
+
+
+def worker_eval(store: str, rank: str, weights: str, out_dir: str) -> None:
+    distributed.initialize(store, 2, int(rank), backend="gloo", device="cpu")
+    model = TinyFacesDetector(dtype=torch.bfloat16)
+    model.load_state_dict(torch.load(weights, weights_only=True))
+    det = PyramidDetector(model, load_templates(), DetectorConfig(), EvalConfig(), device="cuda")
+    evaluate_model.run(det, MemoryDataset(sweep_items(np.random.default_rng(7))), 0.03, 0.3, "val",
+                       results_dir=out_dir, eval_batch=32, workers=4, rank=int(rank), world=2)
+    distributed.barrier_at_exit("eval_sweep_done")
+
+
+def result_tree(root: Path) -> dict:
+    return {p.relative_to(root): p.read_bytes() for p in root.rglob("*.txt")}
+
+
+def phase_eval_distributed(calibrated: TinyFacesDetector, templates_np, dev: torch.device,
+                           name: str) -> dict:
+    """Phase 21 (D): phase 7's sweep (a) data-parallel over every card
+    (`device=local_devices("cuda")`, one replica each) against the
+    single-card sweep whose batches are the same pieces (phase 7's tree on
+    one card, eval batch 32 / cards otherwise), then a warm batch of 32
+    timed on every card and on one; and (b) by two processes of a gloo
+    group (`--coordinator-address` with `--num-processes 2`), each writing
+    its images r::2: disjoint halves whose union is phase 7's tree. Byte
+    for byte."""
+    items = sweep_items(np.random.default_rng(7))
+    cards = local_devices("cuda")
+    reference = SWEEP_DIR
+    if len(cards) > 1:
+        reference = DIST_DIR / "single_piece"
+        shutil.rmtree(reference, ignore_errors=True)
+        det = PyramidDetector(bf16_copy(calibrated, dev), templates_np, DetectorConfig(), EvalConfig(),
+                              device=dev)
+        evaluate_model.run(det, MemoryDataset(items), 0.03, 0.3, "val", results_dir=reference,
+                           eval_batch=32 // len(cards), workers=4)
+    dp_dir = DIST_DIR / "data_parallel"
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    det = PyramidDetector(bf16_copy(calibrated, dev), templates_np, DetectorConfig(), EvalConfig(),
+                          device=cards)
+    evaluate_model.run(det, MemoryDataset(items), 0.03, 0.3, "val", results_dir=dp_dir,
+                       eval_batch=32, workers=4)
+    want = result_tree(reference)
+    check(len(want) == len(items) and result_tree(dp_dir) == want,
+          f"the data-parallel sweep over {len(cards)} cards differs from the single-card tree")
+    batch = pink_images(np.random.default_rng(9), [(480, 360)] * 32)
+    rates = {len(cards): warm_batch_rate(det, batch)}
+    del det
+    if len(cards) > 1:
+        one = PyramidDetector(bf16_copy(calibrated, dev), templates_np, DetectorConfig(), EvalConfig(),
+                              device=dev)
+        rates[1] = warm_batch_rate(one, batch)
+        del one
+    torch.cuda.empty_cache()
+
+    weights = DIST_DIR / "calibrated.pt"
+    torch.save(calibrated.state_dict(), weights)
+    halves = [DIST_DIR / f"eval_rank{r}" for r in range(2)]
+    for h in halves:
+        shutil.rmtree(h, ignore_errors=True)
+    store = fresh_store("eval")
+    spawn_ranks("eval", [["eval", store, str(r), str(weights), str(halves[r])] for r in range(2)])
+    got = [result_tree(h) for h in halves]
+    check(not set(got[0]) & set(got[1]) and len(got[0]) == len(got[1]) == len(items) // 2
+          and {**got[0], **got[1]} == result_tree(SWEEP_DIR),
+          f"the two ranks wrote {len(got[0])} and {len(got[1])} files "
+          f"({len(set(got[0]) & set(got[1]))} in both); their union differs from phase 7's tree")
+    print(f"distributed sweep: data-parallel over {len(cards)} card(s) byte-equal to the single-card "
+          f"tree; a warm batch of 32 480x360 images (bf16) at "
+          f"{', '.join(f'{v:.2f} img/s on {k} card(s)' for k, v in sorted(rates.items()))}; two "
+          f"coordinated ranks wrote disjoint halves ({len(got[0])} + {len(got[1])} files) whose "
+          f"union is phase 7's tree ({name})", flush=True)
+    return {"data_parallel_cards": len(cards),
+            "warm_batch32_img_per_s_by_cards": {str(k): v for k, v in rates.items()},
+            "coordinated_files": [len(g) for g in got]}
+
+
+def warm_batch_rate(det: PyramidDetector, images: list, runs: int = 3) -> float:
+    """img/s of det.detect_batch(images), median of `runs` after one
+    warm-up call (cuDNN's set-up on every card)."""
+    det.detect_batch(images, 0.03)
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        det.detect_batch(images, 0.03)
+        times.append(time.perf_counter() - t0)
+    return len(images) / float(np.median(times))
+
+
+WORKERS = {"dist_steps": worker_dist_steps, "stop": worker_stop, "eval": worker_eval}
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--worker"]:  # one rank of phases 19-21, started by spawn_ranks
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        WORKERS[sys.argv[2]](*sys.argv[3:])
+        return
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", type=Path, default=None,
                     help="another checkout: its K1 is built and timed in turns with this one")
@@ -1514,10 +2051,18 @@ def main() -> None:
     phase_checkpoint(trainer, dataset, templates_np, dev)
     del trainer, dataset
     torch.cuda.empty_cache()
+    t_dist = time.perf_counter()
+    dist_result = {"card": name}
+    dist_result["world_n"], world_n_launches = phase_world_n(dev, name)
+    dist_result["agreed_stop"], stop_launches = phase_agreed_stop(name)
+    t_dist = time.perf_counter() - t_dist
 
     model, vs_cpu = phase_inference_vs_cpu(templates_np, dev)
     full = phase_full_width(model, templates_np, dev, name)
     served = phase_sweep_and_service(model, templates_np, dev)
+    t0 = time.perf_counter()
+    dist_result["eval"] = phase_eval_distributed(model, templates_np, dev, name)
+    t_dist += time.perf_counter() - t0
     fixtures = load_fixtures()
     dct = {"card": name, "fixtures": phase_jpeg_fixtures(fixtures),
            "unpack_vs_cpu": phase_unpack_vs_cpu(fixtures, dev),
@@ -1528,24 +2073,34 @@ def main() -> None:
                 "pil_pyramid": phase_pil_pyramid(model, templates_np, dev, name)}
     del model
     torch.cuda.empty_cache()
-    train_cli_result, cli_launches = phase_train_cli(templates_np, dev, name)
+    train_cli_result, cli_launches, ann, train_set = phase_train_cli(templates_np, dev, name)
+    t0 = time.perf_counter()
+    dist_result["world1_group"], group_launches = phase_world1_group(ann, train_set, dev, name)
+    t_dist += time.perf_counter() - t0
+    del train_set
     dct["train_cli"], dct_launches = phase_train_cli_jpegdct(templates_np, fixtures, dev, name)
     gc.collect()
     torch.cuda.empty_cache()  # the children of phase 17 have the card to themselves
     accuracy["closed_loop"], e2e_launches = phase_closed_loop(dev, name)
+    dist_result["phases_18_21_s"] = t_dist
+    print(f"phases 18-21 (multi-process training and evaluation) took {t_dist:.1f} s", flush=True)
     print(f"all phases passed in {time.perf_counter() - start:.1f} s ({name})", flush=True)
     print(json.dumps({"inference": {"card": name, "gpu_vs_cpu": vs_cpu, **full, **served}}))
     print(json.dumps({"train_cli": train_cli_result}))
     print(json.dumps({"jpegdct": dct}))
     print(json.dumps({"accuracy": accuracy}))
+    print(json.dumps({"distributed": dist_result}))
     print(json.dumps({"kernels": [{
         "name": "dense_assignment_reductions",
         "route": "cuda",
         "source": "tinyfaces_tpu_torch/csrc/dense_assignment.cu",
         "replaces": "tinyfaces_tpu/ops/pallas_assignment.py:209",
-        "launches": launches + cli_launches + dct_launches + e2e_launches,
+        "launches": (launches + cli_launches + dct_launches + e2e_launches + group_launches
+                     + world_n_launches + stop_launches),
         "launches_by_path": {"train_epoch": launches, "train_cli": cli_launches,
-                             "train_cli_jpegdct": dct_launches, "e2e_train": e2e_launches},
+                             "train_cli_jpegdct": dct_launches, "e2e_train": e2e_launches,
+                             "train_cli_world1_group": group_launches,
+                             "world_n_all_ranks_and_world1_replays": world_n_launches, "agreed_stop_all_ranks": stop_launches},
         "max_abs_err": kres["max_abs_err"],
         **kres[f"G{DetectorConfig().max_gt}"],
         "library_ms": None,  # no single PyTorch call computes it

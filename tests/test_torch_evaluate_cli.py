@@ -122,8 +122,8 @@ def test_argument_surface_matches_jax(tmp_path):
 
     ann = _tree(tmp_path)
     for extra, item in ((["--transfer", "jpegdct4"], "item 15"), (["--transfer", "yuv420"], "item 15"),
-                        (["--resample", "pil"], "transfer='rgb'"), (["--data-parallel"], "item 13"),
-                        (["--shard", "spatial"], "item 13"), (["--bf16", "--fp32"], "exclusive")):
+                        (["--resample", "pil"], "transfer='rgb'"), (["--shard", "auto"], "item 15"),
+                        (["--shard", "spatial"], "item 15"), (["--bf16", "--fp32"], "exclusive")):
         with pytest.raises(SystemExit, match=item):
             cli.main([str(ann), "--device", "cpu", *extra])
     with pytest.raises(ValueError, match="does not fit split"):

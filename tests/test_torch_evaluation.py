@@ -186,9 +186,13 @@ def test_unported_options_raise():
         == "jpegdct"  # ported in tests/test_torch_jpegdct_eval.py
     assert evaluation.PyramidDetector(model, TEMPLATES, ec=EvalConfig(resample="pil"),
                                       device="cpu").ec.resample == "pil"  # tests/test_torch_pilresize.py
+    assert evaluation.PyramidDetector(model, TEMPLATES, device=["cpu", "cpu"]).devices == [
+        torch.device("cpu")] * 2  # data-parallel, tests/test_torch_distributed.py
+    with pytest.raises(ValueError, match="mix device types"):
+        evaluation.PyramidDetector(model, TEMPLATES, device=["cpu", "cuda"])
     for kw, item in ((dict(transfer="yuv420"), "item 15"),
-                     (dict(transfer="jpegdct4"), "item 15"), (dict(mesh=object()), "item 13"),
-                     (dict(shard="spatial"), "item 13"),
+                     (dict(transfer="jpegdct4"), "item 15"), (dict(shard="auto"), "item 15"),
+                     (dict(shard="spatial"), "item 15"),
                      (dict(ec=EvalConfig(resample="pil"), transfer="jpegdct"), "transfer='rgb'"),
                      (dict(ec=EvalConfig(resample="nearest")), "resample")):
         with pytest.raises(ValueError, match=item):

@@ -1,5 +1,6 @@
 """The port imports nothing of JAX or of the JAX package: every module of
-tinyfaces_tpu_torch, and chip_smoke.py, imports in a fresh interpreter where
+tinyfaces_tpu_torch, chip_smoke.py and the distributed tests' worker
+(tests/torch_dist_worker.py) import in a fresh interpreter where
 `import jax`, `import tinyfaces_tpu` and `import PIL` fail (the machine with
 the GPU has neither JAX nor PIL), and the port's grader grades a result tree
 there. The port's own copies of what it took from
@@ -56,6 +57,9 @@ root = pathlib.Path(tempfile.mkdtemp())
 (root / "res" / "0--Ev" / "b.txt").write_text("b.jpg\\n1\\n300 300 20 20 0.5\\n")
 scores = wider_eval.main([str(root / "gt.txt"), "--results-dir", str(root / "res")])
 assert scores["all"] == 0.5 and scores["hard~"] == 0.5, scores
+# multi-process training and evaluation, and the worker of their CPU tests
+assert {"tinyfaces_tpu_torch.parallel.distributed", "tinyfaces_tpu_torch.parallel.mesh"} <= set(names)
+importlib.import_module("tests.torch_dist_worker")
 assert not any(k.split(".")[0] in banned + ("PIL",) for k, v in sys.modules.items() if v is not None)
 print(len(names))
 """
@@ -65,7 +69,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 51  # chip_smoke + every module of the package
+    assert int(out.stdout.split()[-1]) >= 52  # chip_smoke + every module of the package
 
 
 @pytest.mark.parametrize("name", ["ReceptiveField", "DetectorConfig", "TrainConfig", "EvalConfig"])

@@ -6,7 +6,7 @@ plus `--device`. End to end at a cut depth (ResNet-50's stages set to
 weights/checkpoint_1 --epochs 2` leave a state_dict bit-equal to an
 uninterrupted `--epochs 2` run; the JSONL records carry the JAX trainer's
 keys; SIGTERM during epoch 0 writes checkpoint_1 and stops; the unported
-options exit naming their ROADMAP item, and `--device cuda` without a GPU
+options and multi-process runs that cannot start exit, and `--device cuda` without a GPU
 exits; without `--bf16` TF32 is off. A reference .pth reads as the JAX package's converter reads it, and
 `--pretrained-backbone` loads only its backbone.
 """
@@ -154,11 +154,16 @@ def test_sigterm_checkpoints_and_stops(tree, tmp_path, monkeypatch):
     assert signal.getsignal(signal.SIGTERM) is previous
 
 
-@pytest.mark.parametrize("extra,item", [(["--transfer", "yuv420"], "item 15"),
-                                        (["--transfer", "jpegdct", "--num-processes", "2"], "item 13"),
-                                        (["--num-processes", "2"], "item 13"),
-                                        (["--coordinator-address", "localhost:1234"], "item 13")])
+@pytest.mark.parametrize("extra,item", [
+    (["--transfer", "yuv420"], "item 15"),
+    (["--transfer", "jpegdct", "--num-processes", "3", "--coordinator-address", "file:///x"],
+     "global batch"),
+    (["--num-processes", "2"], "needs --coordinator-address"),
+    (["--num-processes", "4", "--coordinator-address", "localhost:1234"], "global batch")])
 def test_unported_options_exit(tree, extra, item):
+    """Unported options and multi-process runs that cannot start exit
+    before any process group is formed (multi-process training itself:
+    tests/test_torch_distributed.py)."""
     with pytest.raises(SystemExit, match=item):
         cli.main(_argv(tree, *extra))
 

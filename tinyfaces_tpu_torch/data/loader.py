@@ -20,8 +20,13 @@ device each batch is collated into pinned host memory and copied with
 loader is. Each loader records the consumer's wait on the queue per batch
 (`wait_ms`): the host time a step waits for its input.
 
-One process only: the JAX loader's `rank`/`world` (ROADMAP item 13) and
-its `pack="yuv420"` (item 15) have no counterpart here yet.
+`rank`/`world` feed one process of a multi-process run, as in the JAX
+loader: `batch_size` stays the global batch, every rank computes the same
+(seed, epoch) order and loads only its rows [rank*per, (rank+1)*per) of
+each global batch (per = batch_size // world). The augmentation draws are
+keyed by the sample index, so a rank's rows are augmented exactly as one
+process augments them. `pack="yuv420"` (ROADMAP item 15) has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -53,7 +58,10 @@ class PrefetchLoader:
     """Iterable over device batches of a map-style train dataset."""
 
     def __init__(self, dataset, batch_size: int, device: torch.device | str = "cuda",
-                 workers: int = 8, seed: int = 0, epoch: int = 0, pack: str = "rgb"):
+                 workers: int = 8, seed: int = 0, epoch: int = 0, pack: str = "rgb",
+                 rank: int = 0, world: int = 1):
+        if world > 1 and batch_size % world:
+            raise ValueError(f"batch_size {batch_size} not divisible by world {world}")
         if pack == "yuv420":
             raise ValueError("pack='yuv420' is not ported: ROADMAP item 15")
         if pack not in ("rgb", "jpegdct"):
@@ -65,6 +73,7 @@ class PrefetchLoader:
         self.workers = max(1, workers)
         self.seed = seed
         self.epoch = epoch
+        self.rank, self.world = rank, world
         self.wait_ms: list[float] = []  # consumer's wait per batch of the last epoch
 
     def __len__(self) -> int:
@@ -86,6 +95,12 @@ class PrefetchLoader:
         self.epoch += 1
         return order
 
+    def _batch_indices(self, order: np.ndarray, b: int) -> np.ndarray:
+        """Global batch b's sample indices, restricted to this rank's rows."""
+        idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+        per = self.batch_size // self.world
+        return idxs[self.rank * per:(self.rank + 1) * per] if self.world > 1 else idxs
+
     def _host_batches(self, order: np.ndarray, load: Callable[[int], dict]) -> Iterator[dict]:
         nb = len(self)
         self.wait_ms = []
@@ -101,7 +116,7 @@ class PrefetchLoader:
                     for b in range(nb):
                         if stop.is_set():
                             return
-                        idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+                        idxs = self._batch_indices(order, b)
                         q.put(_collate(list(pool.map(load, (int(i) for i in idxs))), pin))
             except BaseException as e:  # surface worker errors to the consumer
                 q.put(e)

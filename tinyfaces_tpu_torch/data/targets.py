@@ -130,9 +130,12 @@ def build_targets(
     generator: torch.Generator | None,
     cfg: DetectorConfig,
     noise_tensor: torch.Tensor | None = None,
+    part: tuple[int, int] = (0, 1),
 ):
     """Returns (images (B,H,W,3), class_maps (B,Y,X,T), regress_maps
-    (B,Y,X,4T)). `noise_tensor` replaces the tie-break draws (CPU only)."""
+    (B,Y,X,4T)). `noise_tensor` replaces the tie-break draws (CPU only).
+    `part` = (rank, world) of a batch that is one rank's rows
+    (assign_targets_fused)."""
     vsy, vsx = cfg.heatmap_size
     ofy, ofx = cfg.rf.offset
     sty, stx = cfg.rf.stride
@@ -149,6 +152,6 @@ def build_targets(
     cls_maps, reg_maps = assign_targets_fused(
         batch["gt_boxes"], batch["gt_valid"], pad_masks, templates, generator,
         pos_thresh=cfg.pos_thresh, neg_thresh=cfg.neg_thresh,
-        noise_tensor=noise_tensor, **rf,
+        noise_tensor=noise_tensor, part=part, **rf,
     )
     return images, cls_maps, reg_maps

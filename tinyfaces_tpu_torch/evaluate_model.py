@@ -12,9 +12,19 @@ pack stage entropy-decodes them in C++ and the device reconstructs the
 pixels; `rgb` decodes the images with PIL on the host and uploads the uint8
 canvas. `--resample pil` resizes every level with the reference's uint8 PIL
 bilinear on the device (ops/pilresize.py) and needs `--transfer rgb`.
-`yuv420` and `jpegdct4` exit naming ROADMAP item 15, and
-`--data-parallel`/`--shard`/`--coordinator-address` item 13.
-`--device` (default cuda) is the port's own flag; nothing falls back to
+
+Across processes and cards, as in the JAX CLI:
+  * `--num-processes N --process-id r` detects images r::N (the per-image
+    result files are disjoint, so the ranks may share `--results_dir`);
+  * `--coordinator-address` (host:port or file://) also starts a gloo
+    process group, which carries only the exit barrier: no rank leaves
+    before the others have finished;
+  * `--data-parallel` splits each fused batch over this process's cards,
+    one model replica each: every card of `--device cuda` in one process,
+    the rank's own card (r % cards) under N > 1. `--eval-batch` must
+    divide over them.
+`yuv420`, `jpegdct4` and `--shard spatial|auto` exit naming ROADMAP item
+15. `--device` (default cuda) is the port's own flag; nothing falls back to
 the CPU when there is no GPU.
 """
 
@@ -32,6 +42,8 @@ from tinyfaces_tpu_torch.config import DetectorConfig, EvalConfig
 from tinyfaces_tpu_torch.data import get_dataloader
 from tinyfaces_tpu_torch.data.jpegdct import input_dims
 from tinyfaces_tpu_torch.evaluation import PyramidDetector, _round_up, get_model, write_results
+from tinyfaces_tpu_torch.parallel import distributed
+from tinyfaces_tpu_torch.parallel.mesh import local_devices, rank_device
 
 # Device-memory guard for the fused pyramid: the 2x level dominates
 # activation memory, so the per-bucket batch is capped by a pixel budget —
@@ -97,15 +109,17 @@ def arguments(argv=None):
                              "uint8 canvas; yuv420 and jpegdct4 are not ported (ROADMAP "
                              "item 15)")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="not ported (ROADMAP item 13)")
+                        help="split each batch over this process's cards, one replica each")
     parser.add_argument("--coordinator-address", default="",
-                        help="not ported (ROADMAP item 13); slicing needs no coordinator")
+                        help="host:port or file:// of a gloo group that holds every rank at an "
+                             "exit barrier (slicing itself needs no coordinator)")
     parser.add_argument("--num-processes", default=0, type=int,
                         help="total eval processes (0 = single process); each detects "
                              "images rank::world")
     parser.add_argument("--process-id", default=0, type=int)
     parser.add_argument("--shard", default="batch", choices=("batch", "spatial", "auto"),
-                        help="mesh sharding mode; not ported (ROADMAP items 13, 15)")
+                        help="sharding mode with --data-parallel: batch; spatial and auto are "
+                             "not ported (ROADMAP item 15)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (cuda, cuda:N or cpu)")
     return parser.parse_args(argv)
@@ -124,8 +138,11 @@ def run(detector, dataset, prob_thresh, nms_thresh, split, results_dir=None,
 
     `rank`/`world`: this process detects images `rank::world` only; the
     per-image result files are disjoint, so all ranks may share one
-    results_dir. The phase summary goes to stderr and `run.last_phases`."""
+    results_dir. A detector over several devices takes batches that are
+    a multiple of their count. The phase summary goes to stderr and
+    `run.last_phases`."""
     indices = list(range(len(dataset)))[rank::world]
+    n_dev = len(detector.devices)
     n = len(indices)
     done = 0
     dets = None
@@ -207,7 +224,7 @@ def run(detector, dataset, prob_thresh, nms_thresh, split, results_dir=None,
         imgs = [im for im, _ in items]
         # pad the group to the bucket's fixed batch size; surplus outputs
         # are discarded
-        imgs += [imgs[-1]] * (bucket_batch_for(bucket, eval_batch) - len(imgs))
+        imgs += [imgs[-1]] * (bucket_batch_for(bucket, eval_batch, n_dev) - len(imgs))
         packed = pack_pool.submit(timed_pack, imgs)
         pending.append((items, submit_pool.submit(timed_dispatch, packed)))
         while len(pending) > inflight:
@@ -230,7 +247,7 @@ def run(detector, dataset, prob_thresh, nms_thresh, split, results_dir=None,
             h, w = input_dims(image)
             bucket = (_round_up(h), _round_up(w))
             groups[bucket].append((image, img_path))
-            if len(groups[bucket]) >= bucket_batch_for(bucket, eval_batch):
+            if len(groups[bucket]) >= bucket_batch_for(bucket, eval_batch, n_dev):
                 flush(bucket)
         for bucket in list(groups):
             flush(bucket)
@@ -266,8 +283,8 @@ def _refusal(args) -> str | None:
     if args.resample == "pil" and args.transfer != "rgb":
         return ("resample='pil' reproduces the reference's uint8-domain resampling and needs "
                 "exact pixels on device — use transfer='rgb' (lossy wires defeat the parity point)")
-    if args.data_parallel or args.shard != "batch" or args.coordinator_address:
-        return "--data-parallel/--shard/--coordinator-address are not ported yet (ROADMAP item 13)"
+    if args.shard != "batch":
+        return f"--shard {args.shard} (spatial sharding) is not ported: ROADMAP item 15"
     return None
 
 
@@ -286,18 +303,33 @@ def main(argv=None):
         print("# precision: bf16 (the default; pass --fp32 for reference-exact precision)",
               file=sys.stderr)
 
+    world = max(1, args.num_processes)
+    devices = [torch.device(args.device)]
+    if args.data_parallel:
+        # under N processes each rank splits over its own card only
+        devices = ([rank_device(args.device, args.process_id)] if world > 1
+                   else local_devices(args.device))
+        if args.eval_batch % len(devices):
+            raise SystemExit(f"--data-parallel needs --eval-batch divisible by the "
+                             f"{len(devices)} devices")
+    if args.coordinator_address:
+        distributed.initialize(args.coordinator_address, world, args.process_id,
+                               backend="gloo", device="cpu")
+
     cfg = DetectorConfig()
     dataset, templates = get_dataloader(args.dataset, args, train=False, split=args.split, cfg=cfg)
     model = get_model(args.checkpoint, num_templates=templates.shape[0], dtype=dtype,
-                      arch=args.arch, device=args.device)
+                      arch=args.arch, device=devices[0])
     detector = PyramidDetector(model, templates, cfg=cfg,
                                ec=EvalConfig(resample=args.resample,
                                              template_pruning=args.template_pruning),
-                               device=args.device, transfer=args.transfer)
+                               device=devices, transfer=args.transfer)
     run(detector, dataset, args.prob_thresh, args.nms_thresh, args.split,
         results_dir=args.results_dir, debug=args.debug, eval_batch=args.eval_batch,
         host_resize=args.host_resize, workers=args.workers, rank=args.process_id,
-        world=max(1, args.num_processes))
+        world=world)
+    # the first rank to exit would take the store down under the others
+    distributed.barrier_at_exit("eval_sweep_done")
 
 
 if __name__ == "__main__":

@@ -21,15 +21,22 @@ reference's uint8 PIL bilinear, ops/pilresize.py: each level resized in
 pixel space in float64, byte-equal to the host oracle, then normalized;
 `rgb` wire only).
 
-Not ported (each raises, naming the ROADMAP item that brings it): the
-`yuv420`/`jpegdct4` wires (item 15) and `mesh`/`shard` (items 13, 15). The
-2x level resizes and then convolves whatever `EvalConfig.fold_stem` says:
-the folded stem (ops/stemfold.py) equals that up to summation order
+`device=` a list of cards runs the pyramid data-parallel (the JAX
+package's batch-sharded mesh): one model replica per card, each fused batch
+split into equal contiguous pieces, every piece dispatched before any is
+waited for, and the results gathered in order.
+
+Not ported (each raises, naming ROADMAP item 15): the `yuv420`/`jpegdct4`
+wires and spatial sharding (`shard="spatial"|"auto"`). The 2x level
+resizes and then convolves whatever `EvalConfig.fold_stem` says: the
+folded stem (ops/stemfold.py) equals that up to summation order
 (config.py:85-89) and is in ROADMAP item 15.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 from pathlib import Path
 from typing import NamedTuple, Optional, Sequence
 
@@ -47,6 +54,7 @@ from tinyfaces_tpu_torch.ops.jpeg import dct_batch_to_normalized
 from tinyfaces_tpu_torch.ops.nms import batched_nms_padded
 from tinyfaces_tpu_torch.ops.pilresize import max_taps, resize_pil_batch
 from tinyfaces_tpu_torch.ops.resize import resize_batch
+from tinyfaces_tpu_torch.parallel.mesh import check_shard, split_batch
 from tinyfaces_tpu_torch.utils.convert import from_npz, from_reference_pth
 
 TRANSFERS = ("rgb", "jpegdct")
@@ -151,22 +159,36 @@ class PackedBatch(NamedTuple):
 
 class DeviceResult(NamedTuple):
     """A batch in flight (detect_batch_async): `host` receives the packed
-    (B, K, 6) [x1, y1, x2, y2, score, valid] detections; on a GPU the copy
-    is complete once `event` has completed (None on the CPU)."""
+    (B, K, 6) [x1, y1, x2, y2, score, valid] detections; on GPUs the copy
+    is complete once every one of `events` (one per card) has completed
+    (none on the CPU)."""
 
     host: torch.Tensor
-    event: Optional[torch.cuda.Event]
+    events: tuple
+
+
+class Replica(NamedTuple):
+    """One device's copy of the detector: its model in eval mode, the
+    templates and, per scale, the template ids that may fire there."""
+
+    device: torch.device
+    model: TinyFacesDetector
+    templates: torch.Tensor
+    valid_ids: dict
 
 
 class PyramidDetector:
-    """Multi-scale detector over one device.
+    """Multi-scale detector over one device, or data-parallel when
+    `device` is a list of devices (one replica each; a batch must split
+    evenly over them).
 
     `trace`: set to a list to record, on a GPU, one (phase, CUDA event) pair
     after each phase of every batch — "upload", "unpack" (the normalized
     canvas from the uint8 pixels or the jpegdct wire), then "resize s",
     "forward s" and "decode s" per level s, "nms" and "d2h"; the time of a
-    phase is the elapsed time from the previous event. None (the default)
-    records nothing."""
+    phase is the elapsed time from the previous event (with several
+    devices, of the first device's piece). None (the default) records
+    nothing."""
 
     def __init__(
         self,
@@ -175,8 +197,7 @@ class PyramidDetector:
         cfg: DetectorConfig | None = None,
         ec: EvalConfig | None = None,
         *,
-        device: torch.device | str,
-        mesh=None,
+        device: torch.device | str | Sequence[torch.device | str],
         transfer: str = "rgb",
         shard: str = "batch",
     ):
@@ -185,9 +206,11 @@ class PyramidDetector:
                              f"{_UNPORTED_TRANSFERS[transfer]}; use one of {TRANSFERS}")
         if transfer not in TRANSFERS:
             raise ValueError(f"unknown transfer mode {transfer!r}")
-        if mesh is not None or shard != "batch":
-            raise ValueError("mesh/shard (multi-device pyramid) is not ported yet: ROADMAP "
-                             "item 13 (batch sharding) and item 15 (spatial sharding)")
+        check_shard(shard)
+        devices = [torch.device(d) for d in
+                   ([device] if isinstance(device, (str, torch.device)) else device)]
+        if len({d.type for d in devices}) != 1:
+            raise ValueError(f"devices {devices} mix device types")
         self.ec = ec or EvalConfig()
         if self.ec.resample not in ("linear", "pil"):
             raise ValueError(f"unknown resample kernel {self.ec.resample!r}")
@@ -196,27 +219,31 @@ class PyramidDetector:
                 "resample='pil' reproduces the reference's uint8-domain "
                 "resampling and needs exact pixels on device — use "
                 "transfer='rgb' (lossy wires defeat the parity point)")
-        self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
         self.dtype = model.dtype or torch.float32
         self.templates = np.asarray(templates, np.float64)
-        self.templates_t = torch.tensor(self.templates, dtype=torch.float32, device=self.device)
+        models = [model] + [copy.deepcopy(model) for _ in devices[1:]]
+        self.replicas = [
+            Replica(d, m.to(d).eval(), torch.tensor(self.templates, dtype=torch.float32, device=d), {})
+            for d, m in zip(devices, models)]
         self.cfg = cfg or DetectorConfig()
         self.transfer = transfer
         self.stride = float(self.cfg.rf.stride[0])
         self.offset = float(self.cfg.rf.offset[0])
         self.trace: Optional[list] = None
-        self._ids_cache: dict[float, torch.Tensor] = {}
+
+    @property
+    def devices(self) -> list[torch.device]:
+        return [r.device for r in self.replicas]
 
     def _template_mask(self, scale: float) -> np.ndarray:
         return valid_template_mask(self.templates, scale, pruning=self.ec.template_pruning)
 
-    def _valid_ids(self, scale: float) -> torch.Tensor:
+    def _valid_ids(self, scale: float, replica: Replica) -> torch.Tensor:
         """Device tensor of the template ids that may fire at `scale`."""
-        if scale not in self._ids_cache:
+        if scale not in replica.valid_ids:
             ids = np.nonzero(self._template_mask(scale))[0]
-            self._ids_cache[scale] = torch.tensor(ids, dtype=torch.int64, device=self.device)
-        return self._ids_cache[scale]
+            replica.valid_ids[scale] = torch.tensor(ids, dtype=torch.int64, device=replica.device)
+        return replica.valid_ids[scale]
 
     def _mark(self, phase: str) -> None:
         if self.trace is not None:
@@ -225,7 +252,7 @@ class PyramidDetector:
             self.trace.append((phase, event))
 
     def _pinned(self) -> bool:
-        return self.device.type == "cuda"
+        return self.replicas[0].device.type == "cuda"
 
     def detect(
         self,
@@ -314,8 +341,9 @@ class PyramidDetector:
         scales: Optional[Sequence[float]] = None,
     ) -> DeviceResult:
         """Queue the upload, the fused pyramid and the copy of the packed
-        detections back to (pinned) host memory. Resolve with `_fetch`.
-        Accepts raw images or a PackedBatch from pack_inputs."""
+        detections back to (pinned) host memory, on every device its piece
+        of the batch. Resolve with `_fetch`. Accepts raw images or a
+        PackedBatch from pack_inputs."""
         prob_thresh = self.ec.prob_thresh if prob_thresh is None else prob_thresh
         nms_thresh = self.ec.nms_thresh if nms_thresh is None else nms_thresh
         scales = tuple(self.ec.scales if scales is None else scales)
@@ -327,25 +355,42 @@ class PyramidDetector:
         # come from the same header parse.)
         meta = np.concatenate([np.stack([packed.hs, packed.ws], 1).astype(np.int64),
                                self._level_sizes(packed.hs, packed.ws, scales).reshape(b, -1)], 1)
-        taps = self._pil_taps(meta, scales, packed.h0p, packed.w0p) if self.ec.resample == "pil" else None
         meta_t = torch.from_numpy(meta)
         if self._pinned():
             meta_t = meta_t.pin_memory()
-        meta_d = meta_t.to(self.device, non_blocking=True)
-        images_d = packed.host.to(self.device, non_blocking=True)
-        self._mark("upload")
-        out = self._fused_pyramid(images_d, meta_d[:, :2], meta_d[:, 2:].reshape(b, len(scales), 2),
-                                  scales=scales, h0p=packed.h0p, w0p=packed.w0p,
-                                  prob_thresh=float(prob_thresh), nms_thresh=float(nms_thresh),
-                                  pil_taps=taps)
+        pieces = [slice(r.start, r.stop) for r in split_batch(range(b), len(self.replicas))]
+        # the trace follows the first device's piece
+        marks = [self._mark] + [lambda phase: None] * (len(pieces) - 1)
+        outs = []
+        for replica, rows, mark in zip(self.replicas, pieces, marks):
+            with self._on(replica):
+                taps = (self._pil_taps(meta[rows], scales, packed.h0p, packed.w0p)
+                        if self.ec.resample == "pil" else None)
+                meta_d = meta_t[rows].to(replica.device, non_blocking=True)
+                images_d = packed.host[rows].to(replica.device, non_blocking=True)
+                mark("upload")
+                outs.append(self._fused_pyramid(
+                    replica, images_d, meta_d[:, :2], meta_d[:, 2:].reshape(-1, len(scales), 2),
+                    scales=scales, h0p=packed.h0p, w0p=packed.w0p, prob_thresh=float(prob_thresh),
+                    nms_thresh=float(nms_thresh), pil_taps=taps, mark=mark))
         if not self._pinned():
-            return DeviceResult(out, None)
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        self._mark("d2h")
-        event = torch.cuda.Event()
-        event.record()
-        return DeviceResult(host, event)
+            return DeviceResult(torch.cat(outs), ())
+        host = torch.empty((b, *outs[0].shape[1:]), dtype=outs[0].dtype, pin_memory=True)
+        events = []
+        for replica, rows, mark, out in zip(self.replicas, pieces, marks, outs):
+            with self._on(replica):
+                host[rows].copy_(out, non_blocking=True)
+                mark("d2h")
+                events.append(torch.cuda.Event())
+                events[-1].record()
+        return DeviceResult(host, tuple(events))
+
+    @staticmethod
+    def _on(replica: Replica):
+        """The replica's card as the current device (streams, events)."""
+        if replica.device.type == "cuda":
+            return torch.cuda.device(replica.device)
+        return contextlib.nullcontext()
 
     @staticmethod
     def _level_canvas(h0p: int, w0p: int, s: float) -> tuple[int, int]:
@@ -366,12 +411,14 @@ class PyramidDetector:
         """uint8 (B, H, W, 3) -> the model's dtype, normalized, (B, 3, H, W)."""
         return normalize_images(pixels, dtype=self.dtype).permute(0, 3, 1, 2).contiguous()
 
-    def _fused_pyramid(self, images, size_hw, level_hw, *, scales: tuple, h0p: int, w0p: int,
-                       prob_thresh: float, nms_thresh: float, pil_taps=None) -> torch.Tensor:
-        """Whole pyramid for one batch: the normalized canvas from either
+    def _fused_pyramid(self, replica: Replica, images, size_hw, level_hw, *, scales: tuple,
+                       h0p: int, w0p: int, prob_thresh: float, nms_thresh: float,
+                       mark, pil_taps=None) -> torch.Tensor:
+        """Whole pyramid for one batch on `replica`: the normalized canvas from either
         wire, resize of every level, forward, decode, then one cross-scale
         NMS per image. With resample="pil" the canvas stays in pixels: each
-        level is resized on the uint8 grid, then normalized."""
+        level is resized on the uint8 grid, then normalized. `mark(phase)`
+        records the trace's events."""
         pil = self.ec.resample == "pil"
         if pil:
             # PIL's uint8 rounding does not commute with normalization.
@@ -383,7 +430,7 @@ class PyramidDetector:
             x0 = x0.permute(0, 3, 1, 2).contiguous()
         else:
             x0 = self._normalize_nchw(images)
-        self._mark("unpack")
+        mark("unpack")
         st = int(self.stride)
         all_b, all_s, all_v = [], [], []
         for si, s in enumerate(scales):
@@ -399,16 +446,16 @@ class PyramidDetector:
                 xs = self._normalize_nchw(xs.to(torch.uint8).permute(0, 2, 3, 1))
             else:
                 xs = resize_batch(x0, (thp, twp), size_hw, level)
-            self._mark(f"resize {s}")
-            out = self.model(xs.permute(0, 2, 3, 1))
-            self._mark(f"forward {s}")
+            mark(f"resize {s}")
+            out = replica.model(xs.permute(0, 2, 3, 1))
+            mark(f"forward {s}")
             # three stride-2 stages: ceil(valid / 8) heatmap rows/cols
             hm = torch.div(level + st - 1, st, rounding_mode="floor")
-            dets = decode_scores(out, self.templates_t, prob_thresh=prob_thresh,
+            dets = decode_scores(out, replica.templates, prob_thresh=prob_thresh,
                                  stride=self.stride, offset=self.offset, scale=float(f),
                                  k=self.ec.max_dets_per_scale, valid_hw=(hm[:, 0], hm[:, 1]),
-                                 valid_ids=self._valid_ids(f))
-            self._mark(f"decode {s}")
+                                 valid_ids=self._valid_ids(f, replica))
+            mark(f"decode {s}")
             all_b.append(dets.boxes)
             all_s.append(dets.scores)
             all_v.append(dets.valid)
@@ -417,13 +464,13 @@ class PyramidDetector:
             torch.cat(all_b, 1), torch.cat(all_s, 1), nms_thresh, torch.cat(all_v, 1),
             self.ec.max_total_dets)
         packed = torch.cat([out_b, out_s[..., None], out_v[..., None].to(torch.float32)], -1)
-        self._mark("nms")
+        mark("nms")
         return packed
 
     @staticmethod
     def _fetch(async_result: DeviceResult) -> list[np.ndarray]:
-        if async_result.event is not None:
-            async_result.event.synchronize()
+        for event in async_result.events:
+            event.synchronize()
         packed = async_result.host.numpy()  # (B, K, 6)
         results = []
         for i in range(packed.shape[0]):
@@ -442,6 +489,7 @@ class PyramidDetector:
         prob_thresh = self.ec.prob_thresh if prob_thresh is None else prob_thresh
         nms_thresh = self.ec.nms_thresh if nms_thresh is None else nms_thresh
         scales = self.ec.scales if scales is None else scales
+        replica = self.replicas[0]
 
         if jpegdct.is_bytes(image):
             # raw JPEG bytes (jpegdct wire): this path resizes pixels on the
@@ -474,15 +522,15 @@ class PyramidDetector:
             padded[:] = MEAN_PIXEL
             padded[:th, :tw] = resized
 
-            x = normalize_images(torch.from_numpy(padded[None]).to(self.device))
-            out = self.model(x)
-            hm = torch.tensor([[(th + st - 1) // st, (tw + st - 1) // st]], device=self.device)
+            x = normalize_images(torch.from_numpy(padded[None]).to(replica.device))
+            out = replica.model(x)
+            hm = torch.tensor([[(th + st - 1) // st, (tw + st - 1) // st]], device=replica.device)
             # The reference divides boxes by the exact 2**s factor even
             # though the resize rounds to integer pixels.
-            dets = decode_scores(out, self.templates_t, prob_thresh=float(prob_thresh),
+            dets = decode_scores(out, replica.templates, prob_thresh=float(prob_thresh),
                                  stride=self.stride, offset=self.offset, scale=float(factor),
                                  k=self.ec.max_dets_per_scale, valid_hw=(hm[:, 0], hm[:, 1]),
-                                 valid_ids=self._valid_ids(factor))
+                                 valid_ids=self._valid_ids(factor, replica))
             all_boxes.append(dets.boxes)
             all_scores.append(dets.scores)
             all_valid.append(dets.valid)

@@ -45,14 +45,18 @@ def detection_loss(
     sample_size: int = 256,
     hard_neg_thresh: float = 0.03,
     uniforms: tuple[torch.Tensor, torch.Tensor] | None = None,
+    part: tuple[int, int] = (0, 1),
 ) -> LossBreakdown:
+    """Sums over this batch; `part` = (rank, world) of a batch that is one
+    rank's rows of a global batch (sampling.balance_sample_batch)."""
     nt = num_templates
     cls_logits = output[..., :nt]
     reg_pred = output[..., nt:]
 
     with torch.no_grad():
         labels = hard_negative_mining(cls_logits, class_map, hard_neg_thresh)
-        labels = balance_sample_batch(labels, generator, sample_size, pos_fraction, uniforms)
+        labels = balance_sample_batch(labels, generator, sample_size, pos_fraction, uniforms,
+                                      part)
 
     cls_mask = (labels != 0.0).to(output.dtype)
     cls_loss = torch.sum(cls_mask * soft_margin_loss(cls_logits, labels))

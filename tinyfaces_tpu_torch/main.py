@@ -22,10 +22,20 @@ coefficients of each crop's source region, and the device decodes and
 augments them (data/dct_train.py); no PIL is needed for baseline 4:2:0 or
 grayscale files.
 
-Not ported, each exiting with the ROADMAP item that brings it: `--transfer
-yuv420` (item 15) and multi-process training (`--num-processes > 1`,
-`--coordinator-address`: item 13). Nothing falls
-back to the CPU: without a GPU, `--device cpu` must be given.
+Multi-process data-parallel training: start one process per rank with the
+same flags plus `--num-processes N --process-id r --coordinator-address
+ADDR` (`host:port`, where rank 0 hosts the store, or a `file://` path that
+every rank sees and that does not exist yet). `--batch_size` is the global
+batch; each rank trains on its rows of it and world N computes what one
+process computes (trainer.py). The process group is NCCL on `--device cuda`
+(rank r on card r % cards; two ranks on one card are refused, as NCCL
+refuses them) and gloo on `--device cpu`. A SIGTERM to any rank stops every
+rank at the same epoch boundary, each rank waits for the others before it
+exits, only rank 0 writes checkpoints and the JSONL, and every rank prints
+its kernel launches.
+
+Not ported: `--transfer yuv420` (ROADMAP item 15) exits naming it. Nothing
+falls back to the CPU: without a GPU, `--device cpu` must be given.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from tinyfaces_tpu_torch.data import get_dataloader
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
 from tinyfaces_tpu_torch.models.resnet import ARCH_STAGES
 from tinyfaces_tpu_torch.ops import assignment_kernel
+from tinyfaces_tpu_torch.parallel import distributed
 from tinyfaces_tpu_torch.parallel.distributed import GracefulStop
 from tinyfaces_tpu_torch.trainer import (Trainer, load_checkpoint, save_checkpoint,
                                          wait_for_checkpoints)
@@ -97,11 +108,11 @@ def arguments(argv=None):
     parser.add_argument("--async-checkpoint", action="store_true",
                         help="write checkpoints in the background (training "
                              "continues during the save)")
-    # Multi-process training: ROADMAP item 13.
+    # Multi-process training (one process per card; see the module docstring).
     parser.add_argument("--coordinator-address", default="",
-                        help="host:port of process 0 (not ported: ROADMAP item 13)")
+                        help="host:port of process 0, or a file:// path every rank sees")
     parser.add_argument("--num-processes", default=0, type=int,
-                        help="total train processes (0 = single process; >1 not ported)")
+                        help="total train processes (0 = single process)")
     parser.add_argument("--process-id", default=0, type=int)
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (cuda, cuda:N or cpu)")
@@ -109,15 +120,24 @@ def arguments(argv=None):
     return parser.parse_args(argv)
 
 
-def _check_supported(args) -> torch.device:
-    if args.num_processes > 1 or args.coordinator_address:
-        raise SystemExit("multi-process training is not ported: ROADMAP item 13")
+def _check_supported(args, backend: str | None) -> torch.device:
     if args.transfer not in ("rgb", "jpegdct"):
         raise SystemExit(f"--transfer {args.transfer} is not ported: ROADMAP item 15")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but torch.cuda.is_available() is False; "
                          "pass --device cpu to train on the CPU")
+    world = max(1, args.num_processes)
+    if world > 1 and not args.coordinator_address:
+        raise SystemExit("--num-processes > 1 needs --coordinator-address (host:port or file://)")
+    if args.batch_size % world:
+        raise SystemExit(f"--batch_size {args.batch_size} is the global batch: it must divide "
+                         f"over the {world} processes")
+    nccl = backend == "nccl" or (backend is None and device.type == "cuda")
+    if nccl and world > 1 and (device.index is not None or world > torch.cuda.device_count()):
+        raise SystemExit(f"{world} processes on NCCL need one card each "
+                         f"({torch.cuda.device_count()} cards, --device {args.device}); "
+                         f"NCCL refuses two ranks on one card")
     return device
 
 
@@ -132,12 +152,17 @@ def load_backbone(model: TinyFacesDetector, path: str | Path) -> None:
     model.load_state_dict({**model.state_dict(), **backbone})
 
 
-def run(args, dataset=None) -> Trainer | None:
+def run(args, dataset=None, backend: str | None = None) -> Trainer | None:
     """The training flow of `main()` for parsed `args`. `dataset` replaces
     the WIDER train dataset read from `args.traindata` (a train WIDERFace
     built with the same DetectorConfig, e.g. one that decodes from memory).
-    Returns the Trainer after the last epoch (None for `--debug`)."""
-    device = _check_supported(args)
+    `backend` overrides the process group's (the CLI's rule: NCCL for
+    cuda, gloo for the CPU); gloo also carries CUDA tensors, so ranks may
+    share a card. Returns the Trainer after the last epoch (None for
+    `--debug`)."""
+    device = _check_supported(args, backend)
+    distributed.initialize(args.coordinator_address or None, args.num_processes or None,
+                           args.process_id, backend=backend, device=device)
     if not args.bf16:  # fp32 means fp32: no TF32 in matmuls or convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -159,6 +184,7 @@ def run(args, dataset=None) -> Trainer | None:
 
     if args.debug:
         debug_visualize(dataset, device)
+        distributed.barrier_at_exit("debug_done")
         return None
 
     model = TinyFacesDetector(num_templates=NUM_TEMPLATES, stage_sizes=ARCH_STAGES[args.arch],
@@ -177,7 +203,7 @@ def run(args, dataset=None) -> Trainer | None:
 
     start_epoch = args.start_epoch
     if args.resume:
-        payload = load_checkpoint(args.resume, map_location=device)
+        payload = load_checkpoint(args.resume, map_location=trainer.device)
         trainer.restore(payload)
         if not start_epoch:
             start_epoch = int(payload["epoch"])
@@ -199,6 +225,7 @@ def run(args, dataset=None) -> Trainer | None:
     finally:
         wait_for_checkpoints()
         trainer.close()
+    distributed.barrier_at_exit("train_done")
     return trainer
 
 

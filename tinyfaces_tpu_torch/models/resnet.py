@@ -18,6 +18,16 @@ statistics stay float32. Convolutions cast their weights to the activation
 dtype; batch norm normalises in float32 and rounds its output to the
 activation dtype, as flax does. None (the default) keeps the input's dtype,
 so `.double()` gives a float64 model.
+
+Under a process group of more than one rank, training-mode batch norm uses
+the statistics of the global batch, as XLA computes them over the JAX
+package's data axis. Each rank takes its rows' two-pass (count, mean,
+variance) per channel in float32, one differentiable all-reduce gathers
+every rank's, and they are merged with Chan's parallel formula. flax's fast
+form E[x^2] - E[x]^2 cancels in float32 where a channel's mean is large
+against its spread, and at ResNet-101's depth that moved one training step
+far from one process's two-pass statistics. One process keeps the plain
+path.
 """
 
 from __future__ import annotations
@@ -27,6 +37,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tinyfaces_tpu_torch.parallel import distributed
 
 RESNET101_STAGES: Tuple[int, ...] = (3, 4, 23)
 RESNET50_STAGES: Tuple[int, ...] = (3, 4, 6)
@@ -54,6 +66,8 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
+        if distributed.world() > 1:
+            return self._global_batch_forward(x)
         # Normalize with the biased batch statistics, then update the running
         # statistics with the biased variance (flax), not the unbiased one.
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
@@ -63,6 +77,28 @@ class BatchNorm2d(nn.Module):
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
         return y
+
+    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Training mode over every rank's rows (see the module docstring)."""
+        xf = x.float()
+        c = xf.shape[1]
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        count = torch.full((1,), xf.numel() // c, dtype=torch.float32, device=x.device)
+        # Row r of `rows` is rank r's (count, mean, var): an all-gather as an
+        # all-reduce SUM of zero-padded rows, differentiable as it stands.
+        r, n = distributed.rank(), distributed.world()
+        rows = distributed.all_reduce_sum(F.pad(torch.cat([count, mean, var])[None],
+                                                (0, 0, r, n - 1 - r)))
+        counts, means, variances = rows[:, :1], rows[:, 1:c + 1], rows[:, c + 1:]
+        mean = (counts * means).sum(0) / counts.sum()
+        var = (counts * (variances + (means - mean) ** 2)).sum(0) / counts.sum()
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        return y.to(x.dtype)
 
 
 class Conv2d(nn.Conv2d):

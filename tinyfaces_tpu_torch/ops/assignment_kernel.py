@@ -247,17 +247,22 @@ def assign_targets_fused(
     neg_thresh: float,
     noise: bool = True,
     noise_tensor: torch.Tensor | None = None,
+    part: tuple[int, int] = (0, 1),
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Class and regression maps for a batch; the reductions run on the
     tensors' device (kernel on CUDA, twin on CPU). Per-image noise seeds
-    are drawn from `generator`. Returns (class_map, regress_map)."""
+    are drawn from `generator`. `part` = (rank, world): the batch is rank's
+    rows of a global batch of world * B, so the seeds are drawn for the
+    global batch and rank's rows kept, as world 1 draws them. Returns
+    (class_map, regress_map)."""
     b = gt_boxes.shape[0]
     vsy, vsx = pad_mask.shape[1:3]
     gt_boxes = gt_boxes.to(torch.float32)
     gt_valid = drop_degenerate(gt_boxes, gt_valid)
     gen_dev = generator.device if generator is not None else gt_boxes.device
-    seed = torch.randint(0, 2**31 - 1, (b,), generator=generator, device=gen_dev,
-                         dtype=torch.int32).to(gt_boxes.device)
+    r, w = part
+    seed = torch.randint(0, 2**31 - 1, (w * b,), generator=generator, device=gen_dev,
+                         dtype=torch.int32)[r * b:(r + 1) * b].to(gt_boxes.device)
     rf = dict(ofx=ofx, ofy=ofy, stx=stx, sty=sty)
     reductions = dense_assignment_reductions(
         gt_boxes, gt_valid, templates, seed, vsx=vsx, vsy=vsy,

@@ -49,16 +49,22 @@ def balance_sample_batch(
     sample_size: int = 256,
     pos_fraction: float = 0.5,
     uniforms: tuple[torch.Tensor, torch.Tensor] | None = None,  # (pos, neg), each (B, N)
+    part: tuple[int, int] = (0, 1),
 ) -> torch.Tensor:
-    """Randomly zero out excess positives/negatives of each sample."""
+    """Randomly zero out excess positives/negatives of each sample. `part` =
+    (rank, world): the batch is rank's rows of a global batch of world * B;
+    the uniforms are drawn for the global batch and rank's rows kept, as
+    world 1 draws them."""
     pos_max = int(sample_size * pos_fraction)
     neg_max = int(pos_max * (1 - pos_fraction) / pos_fraction)
 
     flat = class_map.reshape(class_map.shape[0], -1)
     if uniforms is None:
         gen_dev = generator.device if generator is not None else flat.device
+        (r, w), b = part, flat.shape[0]
         uniforms = tuple(
-            torch.rand(flat.shape, generator=generator, device=gen_dev).to(flat.device)
+            torch.rand((w * b, flat.shape[1]), generator=generator,
+                       device=gen_dev)[r * b:(r + 1) * b].to(flat.device)
             for _ in range(2))
     pos_u, neg_u = (u.to(flat.device, flat.dtype) for u in uniforms)
 

@@ -1,2 +1,2 @@
-"""Run control of the port: SIGTERM handling (multi-process training is
-ROADMAP item 13)."""
+"""Multi-process training and multi-card evaluation on torch.distributed:
+run control (`distributed`) and devices (`mesh`)."""

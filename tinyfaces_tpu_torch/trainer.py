@@ -1,7 +1,7 @@
 """Training runtime: optimizer, train step, epoch loop, checkpoints.
 
 Port of tinyfaces_tpu/trainer.py (reference trainer.py:68-90, main.py:66-104)
-for one device:
+for one device per process:
   * SGD(momentum 0.9, weight decay 5e-4) with per-group learning rates —
     backbone 1x, score_res3 0.1x, score_res4 1x; the bilinear upsampler is
     frozen (requires_grad=False, in no group, so it gets no decay either).
@@ -22,6 +22,17 @@ each epoch's shuffle and augmentation from (seed, epoch), so a resumed run
 draws exactly what an uninterrupted one would. The input is the `rgb` wire
 (uint8 pixels) or `jpegdct` (DCT coefficients of each sample's source
 region, augmented on the device); `yuv420` is not ported.
+
+Under a process group of N ranks (parallel/distributed.py) `TrainConfig.
+batch_size` is the global batch: each rank loads its rows of it, BatchNorm
+reduces its statistics over every rank (models/resnet.py), the step's draws
+are made for the global batch and each rank keeps its rows, and the
+gradients are all-reduced with SUM (the loss is a sum over the batch, so
+the global gradient is the sum of the local ones; DDP's mean would be off
+by N). World N then computes what world 1 computes on the same global
+batch. The logged losses are all-reduced and averaged over the global
+rows; only rank 0 prints the console lines and writes the JSONL, and only
+rank 0 writes a checkpoint.
 """
 
 from __future__ import annotations
@@ -41,6 +52,8 @@ from tinyfaces_tpu_torch.data.loader import NativePrefetchLoader, PrefetchLoader
 from tinyfaces_tpu_torch.data.targets import build_targets
 from tinyfaces_tpu_torch.loss import AvgMeter, LossBreakdown, detection_loss
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector
+from tinyfaces_tpu_torch.parallel import distributed
+from tinyfaces_tpu_torch.parallel.mesh import rank_device
 from tinyfaces_tpu_torch.utils.metrics_log import MetricsLogger
 from tinyfaces_tpu_torch.utils.profiling import StepTimer
 
@@ -91,8 +104,22 @@ def train_step(
     (no host sync) and the reported total is NaN, as in the JAX package.
     `draws` replaces the step's random draws (tests feed JAX's): "noise" is
     the (B,Y,X,T,G) tie-break perturbation, "uniforms" the (pos, neg)
-    balance-sampling uniforms, each (B, Y*X*T)."""
+    balance-sampling uniforms, each (B, Y*X*T), all for the global batch.
+
+    Under a process group of N ranks `batch` is this rank's rows of the
+    global batch, the draws are made (or taken) for the global batch and
+    this rank's rows kept, the gradients are all-reduced with SUM before
+    the update, and the returned losses are the global batch's."""
+    part = (distributed.rank(), distributed.world())
+    b = batch["gt_boxes"].shape[0]
+    rows = slice(part[0] * b, (part[0] + 1) * b)
     draws = draws or {}
+    noise = draws.get("noise")
+    uniforms = draws.get("uniforms")
+    if noise is not None:
+        noise = noise[rows]
+    if uniforms is not None:
+        uniforms = tuple(u[rows] for u in uniforms)
     model.train()
     params = [p for g in opt.param_groups for p in g["params"]]
     if nan_guard:
@@ -102,20 +129,25 @@ def train_step(
         old_momentum = [None if m is None else m.clone() for m in old_momentum]
 
     images, cls_maps, reg_maps = build_targets(batch, templates, generator, cfg,
-                                               noise_tensor=draws.get("noise"))
+                                               noise_tensor=noise, part=part)
     out = model(images)
     lb = detection_loss(
         out, cls_maps, reg_maps, generator,
         num_templates=cfg.num_templates, pos_fraction=cfg.pos_fraction,
         sample_size=cfg.sample_size, hard_neg_thresh=cfg.hard_neg_loss_thresh,
-        uniforms=draws.get("uniforms"),
+        uniforms=uniforms, part=part,
     )
     opt.zero_grad(set_to_none=True)
     lb.total.backward()
+    lb = LossBreakdown(*(x.detach() for x in lb))
+    if part[1] > 1:
+        distributed.all_reduce_tensors([p.grad for p in params if p.grad is not None])
+        losses = torch.stack(list(lb))
+        distributed.all_reduce_tensors([losses], kind="loss")
+        lb = LossBreakdown(*losses.unbind())
     for g in opt.param_groups:
         g["lr"] = lr * g["lr_factor"]
     opt.step()
-    lb = LossBreakdown(*(x.detach() for x in lb))
 
     if nan_guard:
         with torch.no_grad():
@@ -185,13 +217,24 @@ def save_checkpoint(model: TinyFacesDetector, opt: torch.optim.Optimizer, step: 
     """torch.save of {model, optimizer, step, epoch, batch_size}. The state
     is copied to host memory first; `block=False` then writes it on a
     background thread, and training goes on: call `wait_for_checkpoints()`
-    before exit or before reading the file back."""
+    before exit or before reading the file back.
+
+    Under a process group every rank calls it and rank 0 writes (the ranks
+    hold the same state); a blocking save ends in a barrier, so no rank
+    reads the file before it is whole. A background save is waited for by
+    rank 0's `wait_for_checkpoints()`, before the exit barrier."""
     path = Path(save_path).absolute() / filename
+    if distributed.rank() != 0:
+        if block:
+            distributed.barrier()
+        return path
     path.parent.mkdir(parents=True, exist_ok=True)
     payload = {"model": _to_host(model.state_dict()), "optimizer": _to_host(opt.state_dict()),
                "step": int(step), "epoch": int(epoch), "batch_size": int(batch_size)}
     if block:
         _write(payload, path)
+        if distributed.world() > 1:
+            distributed.barrier()
     else:
         thread = threading.Thread(target=_write_in_background, args=(payload, path),
                                   name=f"checkpoint {filename}")
@@ -217,7 +260,10 @@ def load_checkpoint(path: str | Path, map_location="cpu") -> dict:
 
 @dataclasses.dataclass
 class Trainer:
-    """Epoch loop mirroring the reference main.py/trainer.py flow."""
+    """Epoch loop mirroring the reference main.py/trainer.py flow. Under a
+    process group, each rank's model lives on `mesh.rank_device(device,
+    rank)`; rank 0's parameters and buffers are broadcast after `setup`
+    and `restore`."""
 
     model: TinyFacesDetector
     cfg: DetectorConfig
@@ -233,7 +279,8 @@ class Trainer:
     def __post_init__(self):
         if self.augment not in ("native", "python"):
             raise ValueError(f"augment must be 'native' or 'python', not {self.augment!r}")
-        self.device = torch.device(self.device)
+        self.rank, self.world = distributed.rank(), distributed.world()
+        self.device = rank_device(self.device, self.rank)
         self.model.to(self.device)
         self.templates_t = torch.as_tensor(np.asarray(self.templates), dtype=torch.float32,
                                            device=self.device)
@@ -244,17 +291,24 @@ class Trainer:
         self.reg_average = AvgMeter()
         self.skipped_steps = 0  # non-finite-loss steps seen
         self.loader_wait_ms: list[float] = []  # per batch, of the last epoch
-        self.metrics = MetricsLogger(self.metrics_path)
+        # one console and one JSONL per run: rank 0's
+        self.metrics = MetricsLogger(self.metrics_path if self.rank == 0 else None)
+
+    def _broadcast_state(self) -> None:
+        if self.world > 1:
+            distributed.broadcast_tensors([*self.model.parameters(), *self.model.buffers()])
 
     def setup(self, steps_per_epoch: int) -> None:
         self.opt = make_optimizer(self.model, self.tc)
         self.schedule = make_lr_schedule(self.tc, steps_per_epoch)
+        self._broadcast_state()
 
     def restore(self, payload: dict) -> None:
         """Load a `load_checkpoint` payload into the model and optimizer."""
         self.model.load_state_dict(payload["model"])
         self.opt.load_state_dict(payload["optimizer"])
         self.step = int(payload["step"])
+        self._broadcast_state()
 
     def close(self) -> None:
         self.metrics.close()
@@ -280,15 +334,18 @@ class Trainer:
         the dataset's `getitem_train_dct`."""
         cls = NativePrefetchLoader if self.augment == "native" else PrefetchLoader
         loader = cls(dataset, self.tc.batch_size, device=self.device, workers=self.tc.workers,
-                     seed=self.seed, epoch=epoch, pack=self.transfer)
+                     seed=self.seed, epoch=epoch, pack=self.transfer, rank=self.rank,
+                     world=self.world)
         timer = StepTimer(warmup=1)
         n_batches = len(loader)
         # Loss scalars are fetched lazily: the host blocks on the device only
         # at logging points.
         pending: list = []
         # This step's per-image losses; the console's running averages
-        # follow the reference's never-reset AvgMeter.
+        # follow the reference's never-reset AvgMeter. The losses are the
+        # global batch's, so they are averaged over its rows on every rank.
         last_step_loss = {"cls": None, "reg": None}
+        primary = self.rank == 0
 
         def drain():
             # Fetching the loss waits for the step to finish on the device,
@@ -297,8 +354,9 @@ class Trainer:
                 total = float(plb.total)
                 if not np.isfinite(total):
                     self.skipped_steps += 1
-                    print(f"WARNING: non-finite loss at step {pidx} "
-                          f"({'update dropped' if self.nan_guard else 'UPDATE APPLIED — enable nan_guard'})")
+                    if primary:
+                        print(f"WARNING: non-finite loss at step {pidx} "
+                              f"({'update dropped' if self.nan_guard else 'UPDATE APPLIED — enable nan_guard'})")
                 else:
                     self.class_average.update(float(plb.class_loss), bsz)
                     self.reg_average.update(float(plb.reg_loss), bsz)
@@ -313,14 +371,15 @@ class Trainer:
         while batch is not None:
             lb = self.train_step(batch)
             images = batch["image"] if "image" in batch else batch["dct_wire"]
-            pending.append((idx, images.shape[0], lb))
+            pending.append((idx, images.shape[0] * self.world, lb))
             # Take the next batch (queue hand-over, non-blocking upload)
             # while this step runs on the device.
             batch = next(batches, None)
             if idx % log_every == 0:
                 drain()
-                print_state(idx, epoch, n_batches,
-                            self.class_average.average, self.reg_average.average)
+                if primary:
+                    print_state(idx, epoch, n_batches,
+                                self.class_average.average, self.reg_average.average)
                 self.metrics.log(
                     epoch=epoch, step=idx,
                     loss_cls=self.class_average.average,
@@ -333,9 +392,10 @@ class Trainer:
         drain()
         self.loader_wait_ms = list(loader.wait_ms)
         if timer.measured_steps:
-            print(f"epoch {epoch}: {timer.items_per_sec:.2f} images/sec")
             ov = overflow.snapshot()
-            if ov["dropped_boxes"]:
+            if primary:
+                print(f"epoch {epoch}: {timer.items_per_sec:.2f} images/sec")
+            if primary and ov["dropped_boxes"]:
                 print(f"epoch {epoch}: GT truncation — "
                       f"{ov['dropped_boxes']} boxes dropped over "
                       f"{ov['truncated_samples']} crops (cumulative); "
