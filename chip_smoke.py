@@ -147,16 +147,32 @@ this one, other/this/this/other, at phase 2's timed scenes):
      writing disjoint halves whose union is phase 7's tree byte for byte.
      Children of phases 19-21 run `python chip_smoke.py --worker ...`,
      each under a time limit.
+ 22. the speed instruments at full width (ResNet-101, seeded weights):
+     `python -m tinyfaces_tpu_torch.bench` as a child at its defaults on
+     jpegdct and on rgb, and `python -m tinyfaces_tpu_torch.bench_train`
+     (K1 once a step), each ending in exactly the four-key JSON line with
+     a value above 0; then in this process tools.train_bench --iters 5
+     plain and --remat on deterministic cuDNN (losses within rtol 1e-5),
+     profile_model, device_profile --iters 2 (CUDA kernel times and the
+     idle share; at batch 1 on both wires too), pipeline_profile,
+     jpegdct_ceiling in both modes at batch 32 and 1, serving_bench at
+     16 and 48 requests/s for 5 s each,
+     eval_sweep_bench --n 64, loader_bench and wire_stats --n 2. Each
+     tool's output goes to build/chip_smoke/instruments/<tool>.log and
+     the numbers to instruments.json there; a tool that raises or exits
+     fails the phase. Bench's jpegdct img/s over phase 12's is printed.
 
-Phases run in the order 0-4, 19, 20, 5-7, 21, 9-13, 15, 16, 8, 18, 14, 17
-(9-13, 16 and 21 need phase 5's model, 18 phase 8's tree and run).
+Phases run in the order 0-4, 19, 20, 5-7, 21, 9-13, 15, 16, 8, 18, 14, 17,
+22 (9-13, 16 and 21 need phase 5's model, 18 phase 8's tree and run, 22
+phase 12's rate).
 
 The kernel build and the two host builds (the C++ engine, the JPEG
 decoder) run side by side in phase 1. The second-to-last line of output is
 the card's `nvidia-smi` name and power limit; before it, one JSON line
 describes each kernel (its launches on each path, error, times, bound),
-before that one JSON line holds phases 18-21's multi-process numbers,
-before that one phases 15-17's accuracy numbers, before that one phases
+before that one JSON line holds phase 22's instrument numbers, before that
+one phases 18-21's multi-process numbers, before that one phases 15-17's
+accuracy numbers, before that one phases
 9-14's jpegdct numbers, before that one phase 8's
 training numbers and before that one the inference numbers; the last line
 is {"ok": true, "device": {...}}.
@@ -204,6 +220,9 @@ from tinyfaces_tpu_torch.ops.resize import resize_batch
 from tinyfaces_tpu_torch.parallel import distributed
 from tinyfaces_tpu_torch.parallel.mesh import local_devices
 from tinyfaces_tpu_torch.serving import DetectionService
+from tinyfaces_tpu_torch.tools import (device_profile, eval_sweep_bench, jpegdct_ceiling,
+                                       loader_bench, pipeline_profile, profile_model,
+                                       serving_bench, train_bench, wire_stats)
 from tinyfaces_tpu_torch.trainer import Trainer, load_checkpoint, save_checkpoint
 from tinyfaces_tpu_torch.utils import cuda_build
 
@@ -1539,6 +1558,172 @@ def phase_closed_loop(dev: torch.device, name: str) -> tuple[dict, int]:
     return {"card": name, "e2e": e2e, "ap_cost": configs, "grader": graded}, e2e["k1_launches"]
 
 
+# --- the speed instruments: phase 22 ----------------------------------------
+
+INSTRUMENTS_DIR = ROOT / "build" / "chip_smoke" / "instruments"
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+
+
+def run_bench(module: str, metric: str, log: Path, **env: str) -> dict:
+    """`python -m module` at its defaults (BENCH_* from `env` only) as a
+    child: exit 0, a last stdout line of exactly the contract's four keys
+    with `metric` and a value above 0. Returns the child's detail line
+    (the last JSON line of its stderr) with the contract line under
+    "line"."""
+    t0 = time.perf_counter()
+    child_env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    proc = subprocess.run([sys.executable, "-m", module], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env={**child_env, **env})
+    log.write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        print("\n".join((proc.stdout + proc.stderr).splitlines()[-40:]), flush=True)
+    check(proc.returncode == 0, f"{module} {env} exited {proc.returncode}; see {log}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(set(line) == BENCH_KEYS and line["metric"] == metric and line["value"] > 0,
+          f"{module} {env}: last line {line}")
+    detail = json.loads([ln for ln in proc.stderr.splitlines() if ln.startswith("{")][-1])
+    print(f"  {module} {env or ''}: {json.dumps(line)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {**detail, "line": line}
+
+
+def run_tool(name: str, main, argv: list):
+    """A tool's CLI in this process (`main(argv)`), its output to a log;
+    a raise or an exit fails the phase with the log's tail."""
+    log = INSTRUMENTS_DIR / f"{name}.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as f, contextlib.redirect_stdout(f):
+        try:
+            out = main(argv)
+        except (Exception, SystemExit) as e:
+            f.flush()
+            print("\n".join(log.read_text().splitlines()[-30:]), flush=True)
+            raise AssertionError(f"{name} {argv} failed: {e!r}; see {log}") from e
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {name} {' '.join(argv)}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def phase_instruments(dev: torch.device, name: str, phase12_img_per_s: float) -> tuple[dict, int]:
+    """Phase 22: the speed instruments at full width. Both benches as
+    children at their defaults (bench on jpegdct and on rgb); then every
+    tool in this process with shortened durations. Returns the headline
+    numbers and K1's launches (bench_train's timed steps, train_bench's
+    two runs)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(INSTRUMENTS_DIR, ignore_errors=True)
+    INSTRUMENTS_DIR.mkdir(parents=True)
+    out: dict = {"card": name}
+    metric = "pyramid_inference_images_per_sec_per_chip"
+    out["bench"] = {t: run_bench("tinyfaces_tpu_torch.bench", metric, INSTRUMENTS_DIR / f"bench_{t}.log",
+                                 **({"BENCH_TRANSFER": t} if t != "jpegdct" else {}))
+                    for t in ("jpegdct", "rgb")}
+    train = run_bench("tinyfaces_tpu_torch.bench_train", "train_step_images_per_sec_per_chip",
+                      INSTRUMENTS_DIR / "bench_train.log")
+    check(train["k1_launches"] == train["steps"] + 1, f"bench_train: K1 {train['k1_launches']} "
+          f"launches in {train['steps']} timed steps and the warm-up")
+    out["bench_train"] = train
+    launches = train["k1_launches"]
+
+    # train_bench plain and --remat on deterministic cuDNN: the same losses
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = {tag: run_tool(f"train_bench{tag}", train_bench.main, ["--iters", "5", *extra])
+                for tag, extra in (("", []), ("_remat", ["--remat"]))}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    plain, remat = runs[""], runs["_remat"]
+    for r in runs.values():
+        check(r["k1_launches"] == r["iters"] + 1 and np.isfinite(r["losses"]).all(),
+              f"train_bench: K1 {r['k1_launches']} launches in {r['iters']} steps and the warm-up, "
+              f"losses {r['losses']}")
+        launches += r["k1_launches"]
+    rel = float(np.max(np.abs(np.subtract(remat["losses"], plain["losses"]))
+                       / np.abs(plain["losses"])))
+    check(rel <= 1e-5, f"train_bench --remat losses {remat['losses']} vs plain {plain['losses']}")
+    out["train_bench"] = {"plain": plain, "remat": remat, "remat_loss_rel_diff": rel}
+
+    out["profile_model"] = run_tool("profile_model", profile_model.main, [])
+    out["device_profile"] = run_tool("device_profile", device_profile.main,
+                                     ["--iters", "2", "--out-dir", str(INSTRUMENTS_DIR / "trace")])
+    check(out["device_profile"]["device_ms"] > 0, "device_profile: no device time")
+    # batch 1 on both wires: how much of a single image's latency the device is busy
+    out["device_profile_b1"] = {
+        t: run_tool(f"device_profile_b1_{t}", device_profile.main,
+                    ["--batch", "1", "--iters", "5", "--transfer", t, "--top", "5",
+                     "--out-dir", str(INSTRUMENTS_DIR / f"trace_b1_{t}")])
+        for t in ("jpegdct", "rgb")}
+    out["pipeline_profile"] = run_tool("pipeline_profile", pipeline_profile.main, [])
+    out["jpegdct_ceiling"] = {
+        f"{mode}_b{b}": run_tool(f"jpegdct_ceiling_{mode}_b{b}", jpegdct_ceiling.main,
+                                 ["--mode", mode, "--batch", str(b), "--iters", "6"])
+        for b in (32, 1) for mode in ("device", "upload")}
+    rows = run_tool("serving_bench", serving_bench.main,
+                    ["--loads", "16,48", "--duration", "5", "--out", str(INSTRUMENTS_DIR / "serving.json")])
+    check(len(rows) == 2 and all(r["n"] > 0 and r["p50_ms"] > 0 for r in rows), f"serving rows {rows}")
+    out["serving_bench"] = rows
+    out["eval_sweep_bench"] = run_tool("eval_sweep_bench", eval_sweep_bench.main,
+                                       ["--n", "64", "--root", str(INSTRUMENTS_DIR / "sweep")])
+    out["loader_bench"] = run_tool("loader_bench", loader_bench.main,
+                                   ["--root", str(INSTRUMENTS_DIR / "loader")])
+    ws = run_tool("wire_stats", wire_stats.main, ["--n", "2", "--json"])
+    check(len(ws) == 16 and all(r["v3_Bpx"] > 0 for r in ws.values()), "wire_stats rows")
+    out["wire_stats"] = {k: ws[k] for k in ("natural/q90", "texture/q95")}
+    out["bench_jpegdct_over_phase12"] = out["bench"]["jpegdct"]["value"] / phase12_img_per_s
+    out["phase_s"] = time.perf_counter() - t_phase
+
+    b, dp, pp = out["bench"], out["device_profile"], out["pipeline_profile"]
+    for t, r in b.items():
+        lat = r["batch1"]
+        print(f"bench {t}: {r['value']:.2f} img/s (windows {[round(x, 2) for x in r['window_rates']]}), "
+              f"{r['wire_Bpx']:.3f} B/px, H2D probe {r['h2d_probe_MiBps']:.0f} MiB/s, warm-up "
+              f"{r['warmup_s']:.1f} s, peak {r['peak_gib']:.2f} GiB, {r['tflops']:.1f} TFLOP/s "
+              f"({100 * (r['share_of_peak'] or 0):.1f}% of bf16 peak); batch-1 {lat['total_ms']:.2f} ms = "
+              f"pack {lat['pack_ms']:.2f} + enqueue {lat['enqueue_ms']:.2f} + wait {lat['wait_ms']:.2f}; "
+              f"upload {lat['upload_ms']:.2f}, device {lat['device_ms']:.2f} (CUDA events)", flush=True)
+    print(f"bench jpegdct / phase 12's pyramid in this run: {out['bench_jpegdct_over_phase12']:.3f}", flush=True)
+    print(f"bench_train: {train['value']:.2f} img/s (windows {[round(x, 2) for x in train['window_rates']]}), "
+          f"peak {train['peak_gib']:.2f} GiB, {train['tflops']:.2f} TFLOP/s fp32, K1 {train['k1_launches']}; "
+          f"train_bench plain {plain['ms_per_step']:.1f} / remat {remat['ms_per_step']:.1f} ms/step "
+          f"(deterministic cuDNN), peak {plain['peak_gib']:.2f} / {remat['peak_gib']:.2f} GiB, "
+          f"losses equal within {rel:.1e}", flush=True)
+    print(f"device_profile (jpegdct bf16 b32): {dp['device_ms_per_batch']:.1f} ms/batch of device time, "
+          f"busy {100 * dp['busy_share']:.1f}%, idle {100 * dp['idle_share']:.1f}%; classes "
+          + json.dumps({k: round(v, 4) for k, v in dp["class_share"].items()}), flush=True)
+    for k in dp["top_kernels"][:8]:
+        print(f"  {k['ms_per_batch']:8.2f} ms {100 * k['share']:5.1f}%  {k['name'][:100]}", flush=True)
+    for t, r in out["device_profile_b1"].items():
+        print(f"device_profile {t} b1: {r['device_ms_per_batch']:.2f} ms of device time in "
+              f"{r['window_ms'] / r['iters']:.2f} ms a batch, busy {100 * r['busy_share']:.1f}%, "
+              f"{r['launches_per_batch']:.0f} launches a batch", flush=True)
+    print(f"profile_model: {out['profile_model']['pyramid_flops_per_image'] / 1e12:.4f} TFLOP/image, "
+          f"train step {out['profile_model']['train_step_flops'] / 1e12:.4f} TFLOP", flush=True)
+    print(f"pipeline_profile (rgb b16): prep {pp['host_prep_ms']:.2f}, H2D {pp['h2d_ms']:.2f} ms "
+          f"({pp['h2d_MiBps']:.0f} MiB/s), compute {pp['device_compute_ms']:.2f}, D2H {pp['d2h_ms']:.3f}, "
+          f"serial {pp['serial_ms']:.2f} ms; depth 1-4 img/s "
+          f"{[round(v['img_per_s'], 2) for v in pp['pipelined'].values()]}", flush=True)
+    for k, r in out["jpegdct_ceiling"].items():
+        print(f"jpegdct_ceiling {k}: {r['ms_per_batch']:.2f} ms/batch = {r['img_per_s']:.2f} img/s ({r['clock']})"
+              + (f", reconstruction {r['reconstruction_ms']:.2f} ms" if "reconstruction_ms" in r else ""),
+              flush=True)
+    for r in rows:
+        print(f"serving {r['offered_load']:.0f}/s: achieved {r['achieved']}, n {r['n']}, p50 {r['p50_ms']} "
+              f"p95 {r['p95_ms']} p99 {r['p99_ms']} max {r['max_ms']} ms", flush=True)
+    sw = out["eval_sweep_bench"]
+    print(f"eval_sweep_bench (n 64): pipelined {sw['pipelined']['img_per_s']:.2f}, sync-batch "
+          f"{sw['sync-batch']['img_per_s']:.2f}, per-image {sw['per-image']['img_per_s']:.2f} img/s", flush=True)
+    lb = out["loader_bench"]
+    print(f"loader_bench: python {lb['python']['samples_per_s']:.1f}, native {lb['native']['samples_per_s']:.1f} "
+          f"samples/s ({lb['native_speedup']:.2f}x); wire_stats natural/q90 v3 "
+          f"{out['wire_stats']['natural/q90']['v3_Bpx']:.3f} B/px", flush=True)
+    print(f"phase 22 (instruments) took {out['phase_s']:.1f} s ({name})", flush=True)
+    (INSTRUMENTS_DIR / "instruments.json").write_text(json.dumps(out, indent=1))
+    for r in (dp, *out["device_profile_b1"].values()):
+        r["top_kernels"] = r["top_kernels"][:5]  # the whole ranking stays in the file
+    return out, launches
+
+
 # --- multi-process training and evaluation: phases 18-21 (A-D) -----------
 
 DIST_DIR = ROOT / "build" / "chip_smoke" / "dist"
@@ -2082,6 +2267,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()  # the children of phase 17 have the card to themselves
     accuracy["closed_loop"], e2e_launches = phase_closed_loop(dev, name)
+    instruments, instrument_launches = phase_instruments(dev, name, dct["bf16"]["img_per_s"])
     dist_result["phases_18_21_s"] = t_dist
     print(f"phases 18-21 (multi-process training and evaluation) took {t_dist:.1f} s", flush=True)
     print(f"all phases passed in {time.perf_counter() - start:.1f} s ({name})", flush=True)
@@ -2090,17 +2276,19 @@ def main() -> None:
     print(json.dumps({"jpegdct": dct}))
     print(json.dumps({"accuracy": accuracy}))
     print(json.dumps({"distributed": dist_result}))
+    print(json.dumps({"instruments": instruments}))
     print(json.dumps({"kernels": [{
         "name": "dense_assignment_reductions",
         "route": "cuda",
         "source": "tinyfaces_tpu_torch/csrc/dense_assignment.cu",
         "replaces": "tinyfaces_tpu/ops/pallas_assignment.py:209",
         "launches": (launches + cli_launches + dct_launches + e2e_launches + group_launches
-                     + world_n_launches + stop_launches),
+                     + world_n_launches + stop_launches + instrument_launches),
         "launches_by_path": {"train_epoch": launches, "train_cli": cli_launches,
                              "train_cli_jpegdct": dct_launches, "e2e_train": e2e_launches,
                              "train_cli_world1_group": group_launches,
-                             "world_n_all_ranks_and_world1_replays": world_n_launches, "agreed_stop_all_ranks": stop_launches},
+                             "world_n_all_ranks_and_world1_replays": world_n_launches, "agreed_stop_all_ranks": stop_launches,
+                             "instruments": instrument_launches},
         "max_abs_err": kres["max_abs_err"],
         **kres[f"G{DetectorConfig().max_gt}"],
         "library_ms": None,  # no single PyTorch call computes it

@@ -57,6 +57,12 @@ root = pathlib.Path(tempfile.mkdtemp())
 (root / "res" / "0--Ev" / "b.txt").write_text("b.jpg\\n1\\n300 300 20 20 0.5\\n")
 scores = wider_eval.main([str(root / "gt.txt"), "--results-dir", str(root / "res")])
 assert scores["all"] == 0.5 and scores["hard~"] == 0.5, scores
+# the speed instruments: the benches and the tools
+assert {"tinyfaces_tpu_torch.bench", "tinyfaces_tpu_torch.bench_train",
+        "tinyfaces_tpu_torch.utils.instruments"} | {
+    "tinyfaces_tpu_torch.tools." + t for t in (
+        "train_bench", "profile_model", "device_profile", "pipeline_profile", "jpegdct_ceiling",
+        "serving_bench", "eval_sweep_bench", "loader_bench", "wire_stats")} <= set(names)
 # multi-process training and evaluation, and the worker of their CPU tests
 assert {"tinyfaces_tpu_torch.parallel.distributed", "tinyfaces_tpu_torch.parallel.mesh"} <= set(names)
 importlib.import_module("tests.torch_dist_worker")
@@ -69,7 +75,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 52  # chip_smoke + every module of the package
+    assert int(out.stdout.split()[-1]) >= 64  # chip_smoke + every module of the package
 
 
 @pytest.mark.parametrize("name", ["ReceptiveField", "DetectorConfig", "TrainConfig", "EvalConfig"])

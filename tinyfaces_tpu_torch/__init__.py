@@ -24,13 +24,19 @@ layout and names so each module's counterpart is easy to find:
              pyramid inference, its CLIs and the batching service
   metrics.py, wider_eval.py
              box metrics, VOC AP and the WIDER grader (NumPy)
-  tools/     template clustering and the closed-loop accuracy tools
-             (train soak, parity run, recall bands, e2e accuracy, AP cost)
+  bench.py, bench_train.py
+             the pyramid and train-step benches (one JSON line each)
+  tools/     template clustering, the closed-loop accuracy tools (train
+             soak, parity run, recall bands, e2e accuracy, AP cost) and the
+             speed instruments (train, serving, sweep and loader benches,
+             pipeline and device profiles, the jpegdct ceiling, the FLOP
+             count, wire statistics)
 
 It imports torch and never jax, and nothing of the JAX package either: what
 it needs from there (the configurations, templates.json, the step timer,
 the .npz reader, the C++ engine's source) it keeps as its own copy. PIL is
-imported only inside the functions that decode, resize or draw images.
+imported only inside the functions that decode, resize, draw or write
+images.
 """
 
 __version__ = "0.1.0"

@@ -14,7 +14,9 @@ permuted NHWC input is a channels_last NCHW tensor, so no copy is made.
 
 `dtype` (models/resnet.py) sets the activation dtype; the heads and the
 upsample run in it too, and the output is float32 whatever it is, as in
-the JAX model, so decode and NMS always see float32. The JAX model's
+the JAX model, so decode and NMS always see float32. `remat=True`
+recomputes each bottleneck's activations in the backward pass
+(models/resnet.py), as the JAX model's `remat`. The JAX model's
 `stem_precomputed` entry (the folded 2x stem of ops/stemfold.py) is not
 ported.
 """
@@ -59,13 +61,13 @@ class TinyFacesDetector(nn.Module):
 
     def __init__(self, num_templates: int = 25, num_objects: int = 1,
                  stage_sizes: Sequence[int] = RESNET101_STAGES,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, remat: bool = False):
         super().__init__()
         self.num_templates = num_templates
         self.stage_sizes = tuple(stage_sizes)
         self.dtype = dtype
         out = (num_objects + 4) * num_templates
-        self.model = ResNetBackbone(stage_sizes, dtype)
+        self.model = ResNetBackbone(stage_sizes, dtype, remat)
         self.score_res3 = Conv2d(512, out, 1)
         self.score_res4 = Conv2d(1024, out, 1)
         self.score4_upsample = DepthwiseConvTranspose2x(out)

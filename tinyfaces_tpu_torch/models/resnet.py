@@ -28,15 +28,27 @@ form E[x^2] - E[x]^2 cancels in float32 where a channel's mean is large
 against its spread, and at ResNet-101's depth that moved one training step
 far from one process's two-pass statistics. One process keeps the plain
 path.
+
+`remat=True` checkpoints every bottleneck (torch.utils.checkpoint,
+non-reentrant), as flax's `nn.remat(Bottleneck)`: its activations are
+recomputed in the backward pass instead of stored. The recompute runs each
+batch norm's forward a second time, and that pass must neither update the
+running statistics again nor, under a process group, issue its all-reduce
+again (a collective the other ranks might not be issuing at that moment).
+So the first pass records each layer's gathered statistics and the
+recompute replays them: the same values, no collective, no update.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import contextlib
+import threading
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tinyfaces_tpu_torch.parallel import distributed
 
@@ -46,6 +58,46 @@ ARCH_STAGES: dict = {
     "resnet101": RESNET101_STAGES,
     "resnet50": RESNET50_STAGES,
 }
+
+
+class _RematCall:
+    """One checkpointed block call: its batch norms' gathered statistics,
+    recorded in the forward pass and replayed, in order, by the recompute."""
+
+    def __init__(self) -> None:
+        self.replaying = False
+        self.rows: list[torch.Tensor] = []
+        self._next = 0
+
+    def take(self) -> torch.Tensor:
+        rows = self.rows[self._next]
+        self._next += 1
+        return rows
+
+    @contextlib.contextmanager
+    def active(self, replaying: bool) -> Iterator[None]:
+        self.replaying, self._next = replaying, 0
+        previous, _remat.call = getattr(_remat, "call", None), self
+        try:
+            yield
+        finally:
+            _remat.call = previous
+
+
+_remat = threading.local()  # the block call being run or recomputed on this thread
+
+
+def _remat_call() -> Optional[_RematCall]:
+    return getattr(_remat, "call", None)
+
+
+def checkpointed(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """block(x) with its activations recomputed in the backward pass (see
+    the module docstring). The blocks draw no random numbers, so the RNG
+    state is not saved."""
+    call = _RematCall()
+    return checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (call.active(False), call.active(True)))
 
 
 class BatchNorm2d(nn.Module):
@@ -66,11 +118,14 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
+        remat = _remat_call()
         if distributed.world() > 1:
-            return self._global_batch_forward(x)
+            return self._global_batch_forward(x, remat)
         # Normalize with the biased batch statistics, then update the running
         # statistics with the biased variance (flax), not the unbiased one.
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if remat is not None and remat.replaying:
+            return y
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             m = self.momentum
@@ -78,7 +133,7 @@ class BatchNorm2d(nn.Module):
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
         return y
 
-    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _global_batch_forward(self, x: torch.Tensor, remat: Optional[_RematCall]) -> torch.Tensor:
         """Training mode over every rank's rows (see the module docstring)."""
         xf = x.float()
         c = xf.shape[1]
@@ -87,13 +142,21 @@ class BatchNorm2d(nn.Module):
         # Row r of `rows` is rank r's (count, mean, var): an all-gather as an
         # all-reduce SUM of zero-padded rows, differentiable as it stands.
         r, n = distributed.rank(), distributed.world()
-        rows = distributed.all_reduce_sum(F.pad(torch.cat([count, mean, var])[None],
-                                                (0, 0, r, n - 1 - r)))
+        local = F.pad(torch.cat([count, mean, var])[None], (0, 0, r, n - 1 - r))
+        replaying = remat is not None and remat.replaying
+        if replaying:
+            rows = distributed.replayed_all_reduce_sum(local, remat.take())
+        else:
+            rows = distributed.all_reduce_sum(local)
+            if remat is not None:
+                remat.rows.append(rows.detach())
         counts, means, variances = rows[:, :1], rows[:, 1:c + 1], rows[:, c + 1:]
         mean = (counts * means).sum(0) / counts.sum()
         var = (counts * (variances + (means - mean) ** 2)).sum(0) / counts.sum()
         scale = self.weight * torch.rsqrt(var + self.eps)
         y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        if replaying:
+            return y.to(x.dtype)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
@@ -150,9 +213,10 @@ class ResNetBackbone(nn.Module):
     """
 
     def __init__(self, stage_sizes: Sequence[int] = RESNET101_STAGES,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64)
         in_ch = 64
@@ -168,7 +232,14 @@ class ResNetBackbone(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
-        x = self.layer1(x)
-        res3 = self.layer2(x)
-        res4 = self.layer3(res3)
+        x = self._stage(self.layer1, x)
+        res3 = self._stage(self.layer2, x)
+        res4 = self._stage(self.layer3, res3)
         return res3, res4
+
+    def _stage(self, layer: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+        if not (self.remat and torch.is_grad_enabled()):
+            return layer(x)
+        for block in layer:
+            x = checkpointed(block, x)
+        return x

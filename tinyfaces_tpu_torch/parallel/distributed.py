@@ -145,6 +145,26 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     return _AllReduceSum.apply(x)
 
 
+class _ReplayedAllReduceSum(torch.autograd.Function):
+    """all_reduce_sum(x) whose result is already known: no collective in
+    the forward pass, the same gradient as _AllReduceSum."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, result: torch.Tensor) -> torch.Tensor:
+        return result.clone()
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _AllReduceSum.backward(ctx, g), None
+
+
+def replayed_all_reduce_sum(x: torch.Tensor, result: torch.Tensor) -> torch.Tensor:
+    """`result`, an earlier all_reduce_sum(x), as a differentiable function
+    of x: a recompute of the forward pass (models/resnet.py's `remat`)
+    replays the gathered statistics instead of gathering them again."""
+    return _ReplayedAllReduceSum.apply(x, result)
+
+
 def _flat_in_place(tensors: Sequence[torch.Tensor], collective, kind: str) -> None:
     """Runs `collective` in place on one flat buffer per (device, dtype) of
     `tensors` and copies the result back: one call for a model's gradients,

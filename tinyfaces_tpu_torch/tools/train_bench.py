@@ -1,0 +1,119 @@
+"""Training-step throughput on synthetic WIDER-like data.
+
+    python -m tinyfaces_tpu_torch.tools.train_bench [--batch 12] [--iters 20] [--bf16]
+        [--remat] [--fast-precision] [--device cuda]
+
+Port of tools/train_bench.py: `Trainer.train_step` (normalization, K1, the
+ResNet-101 forward and backward, SGD) end to end, with each step's host
+batch made (bench_train.make_synthetic_train_batch) and uploaded inside
+the timed loop, at the reference batch size. Prints ms/step and img/s.
+
+`--remat` recomputes each bottleneck in the backward pass (the model's
+`remat`). `--fast-precision` lets the fp32 convolutions and matmuls run in
+TF32, the card's counterpart of the TPU's single-pass bf16 MXU; without
+it, fp32 means fp32. `--multi K` ran K steps in one TPU dispatch to hide
+the remote link's dispatch latency; it exits naming ROADMAP item 15,
+where CUDA-graph capture is its possible counterpart.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from tinyfaces_tpu_torch.models.resnet import RESNET101_STAGES
+
+from tinyfaces_tpu_torch.bench_train import make_synthetic_train_batch, pinned
+
+
+def run(trainer, make_batch: Callable[[], dict], iters: int) -> dict:
+    """One warm-up step, then `iters` timed steps, each on a fresh host
+    batch from make_batch() uploaded inside the loop; the device is
+    synchronised before the clock stops. Returns the rates, every step's
+    loss (warm-up first) and K1's launches in all of them."""
+    from tinyfaces_tpu_torch.ops import assignment_kernel
+    from tinyfaces_tpu_torch.utils.instruments import peak_gib, reset_peak, sync
+
+    dev = torch.device(trainer.device)
+
+    def step():
+        host = pinned(make_batch(), dev)
+        return trainer.train_step({k: v.to(dev, non_blocking=True) for k, v in host.items()})
+
+    launches0 = assignment_kernel.launch_count
+    t0 = time.perf_counter()
+    losses = [step().total]
+    first_s = time.perf_counter() - t0
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        losses.append(step().total)
+    sync(dev)
+    dt = (time.perf_counter() - t0) / iters
+    batch = trainer.tc.batch_size
+    return {"first_step_s": first_s, "ms_per_step": 1e3 * dt, "img_per_s": batch / dt,
+            "losses": [float(x) for x in losses], "iters": iters, "batch": batch,
+            "k1_launches": assignment_kernel.launch_count - launches0, "peak_gib": peak_gib(dev)}
+
+
+def main(argv=None, *, stage_sizes: Sequence[int] = RESNET101_STAGES) -> dict:
+    """The CLI; `stage_sizes` is the published ResNet-101, only tests
+    shrink it."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=12)
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--multi", type=int, default=0,
+                    help="K>0: K steps per dispatch (not ported: ROADMAP item 15)")
+    ap.add_argument("--fast-precision", action="store_true",
+                    help="TF32 for the fp32 convolutions and matmuls")
+    ap.add_argument("--device", default="cuda", help="torch device (cuda, cuda:N or cpu)")
+    args = ap.parse_args(argv)
+    from tinyfaces_tpu_torch.config import DetectorConfig, TrainConfig
+    from tinyfaces_tpu_torch.data import load_templates
+    from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
+    from tinyfaces_tpu_torch.tools.profile_model import achieved, train_step_flops
+    from tinyfaces_tpu_torch.trainer import Trainer
+    from tinyfaces_tpu_torch.utils.instruments import (card, device_name, resolve_device,
+                                                       unported)
+
+    if args.multi > 0:
+        raise unported("--multi (K steps per dispatch; CUDA-graph capture is its counterpart)")
+    dev = resolve_device(args.device)
+    tf32 = args.bf16 or args.fast_precision
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    cfg = DetectorConfig()
+    model = TinyFacesDetector(stage_sizes=stage_sizes, remat=args.remat,
+                              dtype=torch.bfloat16 if args.bf16 else None)
+    init_model(model, torch.Generator().manual_seed(0))
+    trainer = Trainer(model=model, cfg=cfg, tc=TrainConfig(batch_size=args.batch),
+                      templates=load_templates(), device=dev)
+    trainer.setup(steps_per_epoch=1000)
+    rng = np.random.default_rng(0)
+    out = run(trainer, lambda: make_synthetic_train_batch(rng, args.batch, cfg), args.iters)
+    kind = "bf16" if args.bf16 else ("tf32" if args.fast_precision else "fp32")
+    flops = train_step_flops(args.batch, cfg.input_size, stage_sizes) / args.batch
+    out.update(card=card(dev), dtype=kind, remat=args.remat, flops_per_image=flops,
+               **achieved(flops, out["img_per_s"], device_name(dev), kind))
+    print(f"first step {out['first_step_s']:.1f} s, loss {out['losses'][0]:.1f}")
+    print(f"train_step[{kind}{'+remat' if args.remat else ''}] batch={args.batch}: "
+          f"{out['ms_per_step']:.1f} ms/step, {out['img_per_s']:.2f} images/sec/chip, "
+          f"{out['tflops']:.2f} TFLOP/s"
+          + (f" ({100 * out['share_of_peak']:.1f}% of the {kind} peak)" if out["share_of_peak"] else "")
+          + f"; kernel launches: dense_assignment_reductions {out['k1_launches']} in "
+          f"{args.iters + 1} steps; peak memory "
+          + (f"{out['peak_gib']:.2f} GiB" if out["peak_gib"] is not None else "not measured (cpu)")
+          + f" ({out['card']})")
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()
