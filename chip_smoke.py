@@ -107,8 +107,8 @@ this one, other/this/this/other, at phase 2's timed scenes):
  17. the closed loop through the CLIs as child processes, under
      build/chip_smoke/e2e/: `python -m tinyfaces_tpu_torch.tools.e2e_accuracy
      --train-images 48 --val-images 16 --epochs 2` paints the trees, trains
-     ResNet-101 at batch 12 (K1 once per step, counted by the child and
-     reported at its end), sweeps the held-out 768x1024 images (bf16,
+     ResNet-101 at batch 12 on its default wire, yuv420 (K1 once per step,
+     counted by the child and reported at its end), sweeps the held-out 768x1024 images (bf16,
      jpegdct) and grades them; ap_cost runs its four configurations on the
      checkpoint; cluster_templates clusters the train tree into 25 medoids,
      which load_templates re-clusters from a missing file; the grader gives
@@ -149,28 +149,56 @@ this one, other/this/this/other, at phase 2's timed scenes):
      each under a time limit.
  22. the speed instruments at full width (ResNet-101, seeded weights):
      `python -m tinyfaces_tpu_torch.bench` as a child at its defaults on
-     jpegdct and on rgb, and `python -m tinyfaces_tpu_torch.bench_train`
-     (K1 once a step), each ending in exactly the four-key JSON line with
+     jpegdct, rgb, yuv420 and jpegdct4, and `python -m
+     tinyfaces_tpu_torch.bench_train` on rgb and yuv420 (K1 once a step),
+     each ending in exactly the four-key JSON line with
      a value above 0; then in this process tools.train_bench --iters 5
      plain and --remat on deterministic cuDNN (losses within rtol 1e-5),
      profile_model, device_profile --iters 2 (CUDA kernel times and the
      idle share; at batch 1 on both wires too), pipeline_profile,
      jpegdct_ceiling in both modes at batch 32 and 1, serving_bench at
      16 and 48 requests/s for 5 s each,
-     eval_sweep_bench --n 64, loader_bench and wire_stats --n 2. Each
+     eval_sweep_bench --n 64, loader_bench and wire_stats --n 2 (v3 and v4
+     columns). Each
      tool's output goes to build/chip_smoke/instruments/<tool>.log and
      the numbers to instruments.json there; a tool that raises or exits
      fails the phase. Bench's jpegdct img/s over phase 12's is printed.
+ 23. the folded 2x stem (ops/stemfold.py, EvalConfig's default): against
+     the 2x level's resize then conv1 on 4 normalized 768x1024 canvases of
+     phase 5's model, fp32 with TF32 off (borders within 2e-6, everything
+     within 2e-5 + 1e-5 relative) and bf16 (0.03 of the output's scale);
+     the stem alone at batch 32 bf16 (the fold, its conv NCHW and
+     channels_last, the resize, resize then conv1: ms and peak memory);
+     then EvalConfig() against fold_stem=False, bf16, phase 6's batch of
+     32 at 768x1024, in turns (fold, resize, resize, fold): img/s, the 2x
+     level's "resize 1" (the folded stem when folded) and "forward 1",
+     the whole CUDA-event split, peak memory. (Phases 5, 6 and every
+     pyramid with EvalConfig() fold too, on the card and on the CPU.)
+ 24. the yuv420 wire: phase 5 on it (card against the CPU), phase 6's
+     bf16 batch of 32 on yuv420 and rgb in turns (img/s with the pack done
+     before, the host pack of the planes, the split, peak memory); after
+     phase 18, `main.run --transfer yuv420 --epochs 2` on phase 8's tree
+     (TF32 turned off, every sample from the C++ engine and converted in
+     the loader threads, K1 once a step, losses finite, ms/step, the
+     loader's wait: above ~1 ms a step the step is host-bound);
+ 25. the jpegdct4 wire (v4, bitmap-sparse): the v4 reconstruction of the
+     768x1024-bucket fixtures on the card against the CPU with TF32 on
+     (phase 10's tolerances); on the card, every block whose values v4's
+     stream shipped whole bit-equal to v3's reconstruction (each plane
+     must have such blocks); phase 12's bf16 batch of 32 on
+     jpegdct4 and jpegdct in turns: img/s, wire B/px, upload and unpack,
+     host pack, truncation counts, peak memory.
 
-Phases run in the order 0-4, 19, 20, 5-7, 21, 9-13, 15, 16, 8, 18, 14, 17,
-22 (9-13, 16 and 21 need phase 5's model, 18 phase 8's tree and run, 22
-phase 12's rate).
+Phases run in the order 0-4, 19, 20, 5-7, 21, 9-13, 15, 16, 23, 24, 25, 8,
+18, 24's training, 14, 17, 22 (9-13, 16, 21 and 23-25 need phase 5's model,
+18 and 24's training phase 8's tree and run, 22 phase 12's rate).
 
 The kernel build and the two host builds (the C++ engine, the JPEG
 decoder) run side by side in phase 1. The second-to-last line of output is
 the card's `nvidia-smi` name and power limit; before it, one JSON line
 describes each kernel (its launches on each path, error, times, bound),
 before that one JSON line holds phase 22's instrument numbers, before that
+one phases 23-25's ("wires"), before that
 one phases 18-21's multi-process numbers, before that one phases 15-17's
 accuracy numbers, before that one phases
 9-14's jpegdct numbers, before that one phase 8's
@@ -1504,8 +1532,9 @@ def phase_closed_loop(dev: torch.device, name: str) -> tuple[dict, int]:
               "--val-images", "16", "--epochs", "2", "--workdir", str(work))
     e2e = json.loads((work / "E2E_ACCURACY.json").read_text())
     steps = e2e["total_steps"]
-    check(steps == 8 and e2e["k1_launches"] == steps,
-          f"K1 launched {e2e['k1_launches']} times in {steps} steps of the training child")
+    check(steps == 8 and e2e["k1_launches"] == steps and e2e["train_transfer"] == "yuv420",
+          f"K1 launched {e2e['k1_launches']} times in {steps} steps of the training child "
+          f"(wire {e2e['train_transfer']}, the tool's default yuv420)")
     check(e2e["device"] == torch.cuda.get_device_name(dev), f"the eval child ran on {e2e['device']}")
     run_child(work / "ap_cost.log", "tinyfaces_tpu_torch.tools.ap_cost", "--workdir", str(work),
               "--epochs", "2")
@@ -1606,10 +1635,11 @@ def run_tool(name: str, main, argv: list):
 
 def phase_instruments(dev: torch.device, name: str, phase12_img_per_s: float) -> tuple[dict, int]:
     """Phase 22: the speed instruments at full width. Both benches as
-    children at their defaults (bench on jpegdct and on rgb); then every
-    tool in this process with shortened durations. Returns the headline
-    numbers and K1's launches (bench_train's timed steps, train_bench's
-    two runs)."""
+    children at their defaults (bench on jpegdct, rgb, yuv420 and
+    jpegdct4; bench_train on rgb and yuv420); then every tool in this
+    process with shortened durations. Returns the headline numbers and K1's
+    launches (bench_train's timed steps on both wires, train_bench's two
+    runs)."""
     t_phase = time.perf_counter()
     shutil.rmtree(INSTRUMENTS_DIR, ignore_errors=True)
     INSTRUMENTS_DIR.mkdir(parents=True)
@@ -1617,13 +1647,17 @@ def phase_instruments(dev: torch.device, name: str, phase12_img_per_s: float) ->
     metric = "pyramid_inference_images_per_sec_per_chip"
     out["bench"] = {t: run_bench("tinyfaces_tpu_torch.bench", metric, INSTRUMENTS_DIR / f"bench_{t}.log",
                                  **({"BENCH_TRANSFER": t} if t != "jpegdct" else {}))
-                    for t in ("jpegdct", "rgb")}
-    train = run_bench("tinyfaces_tpu_torch.bench_train", "train_step_images_per_sec_per_chip",
-                      INSTRUMENTS_DIR / "bench_train.log")
-    check(train["k1_launches"] == train["steps"] + 1, f"bench_train: K1 {train['k1_launches']} "
-          f"launches in {train['steps']} timed steps and the warm-up")
-    out["bench_train"] = train
-    launches = train["k1_launches"]
+                    for t in ("jpegdct", "rgb", "yuv420", "jpegdct4")}
+    launches = 0
+    for t in ("rgb", "yuv420"):
+        r = run_bench("tinyfaces_tpu_torch.bench_train", "train_step_images_per_sec_per_chip",
+                      INSTRUMENTS_DIR / f"bench_train_{t}.log",
+                      **({"BENCH_TRANSFER": t} if t != "rgb" else {}))
+        check(r["transfer"] == t and r["k1_launches"] == r["steps"] + 1, f"bench_train {t}: K1 "
+              f"{r['k1_launches']} launches in {r['steps']} timed steps and the warm-up")
+        launches += r["k1_launches"]
+        out["bench_train" + ("" if t == "rgb" else f"_{t}")] = r
+    train, train_yuv = out["bench_train"], out["bench_train_yuv420"]
 
     # train_bench plain and --remat on deterministic cuDNN: the same losses
     flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
@@ -1668,7 +1702,7 @@ def phase_instruments(dev: torch.device, name: str, phase12_img_per_s: float) ->
     out["loader_bench"] = run_tool("loader_bench", loader_bench.main,
                                    ["--root", str(INSTRUMENTS_DIR / "loader")])
     ws = run_tool("wire_stats", wire_stats.main, ["--n", "2", "--json"])
-    check(len(ws) == 16 and all(r["v3_Bpx"] > 0 for r in ws.values()), "wire_stats rows")
+    check(len(ws) == 16 and all(r["v3_Bpx"] > r["v4_Bpx"] > 0 for r in ws.values()), "wire_stats rows")
     out["wire_stats"] = {k: ws[k] for k in ("natural/q90", "texture/q95")}
     out["bench_jpegdct_over_phase12"] = out["bench"]["jpegdct"]["value"] / phase12_img_per_s
     out["phase_s"] = time.perf_counter() - t_phase
@@ -1683,6 +1717,9 @@ def phase_instruments(dev: torch.device, name: str, phase12_img_per_s: float) ->
               f"pack {lat['pack_ms']:.2f} + enqueue {lat['enqueue_ms']:.2f} + wait {lat['wait_ms']:.2f}; "
               f"upload {lat['upload_ms']:.2f}, device {lat['device_ms']:.2f} (CUDA events)", flush=True)
     print(f"bench jpegdct / phase 12's pyramid in this run: {out['bench_jpegdct_over_phase12']:.3f}", flush=True)
+    print(f"bench_train yuv420: {train_yuv['value']:.2f} img/s (windows "
+          f"{[round(x, 2) for x in train_yuv['window_rates']]}), peak {train_yuv['peak_gib']:.2f} GiB, "
+          f"K1 {train_yuv['k1_launches']}", flush=True)
     print(f"bench_train: {train['value']:.2f} img/s (windows {[round(x, 2) for x in train['window_rates']]}), "
           f"peak {train['peak_gib']:.2f} GiB, {train['tflops']:.2f} TFLOP/s fp32, K1 {train['k1_launches']}; "
           f"train_bench plain {plain['ms_per_step']:.1f} / remat {remat['ms_per_step']:.1f} ms/step "
@@ -1716,12 +1753,361 @@ def phase_instruments(dev: torch.device, name: str, phase12_img_per_s: float) ->
     lb = out["loader_bench"]
     print(f"loader_bench: python {lb['python']['samples_per_s']:.1f}, native {lb['native']['samples_per_s']:.1f} "
           f"samples/s ({lb['native_speedup']:.2f}x); wire_stats natural/q90 v3 "
-          f"{out['wire_stats']['natural/q90']['v3_Bpx']:.3f} B/px", flush=True)
+          f"{out['wire_stats']['natural/q90']['v3_Bpx']:.3f} / v4 "
+          f"{out['wire_stats']['natural/q90']['v4_Bpx']:.3f} B/px, drops v3 "
+          f"{out['wire_stats']['natural/q90']['v3_drop_pct']:.3f}% / v4 "
+          f"{out['wire_stats']['natural/q90']['v4_drop_pct']:.3f}%; texture/q95 v4 drops "
+          f"{out['wire_stats']['texture/q95']['v4_drop_pct']:.2f}%", flush=True)
     print(f"phase 22 (instruments) took {out['phase_s']:.1f} s ({name})", flush=True)
     (INSTRUMENTS_DIR / "instruments.json").write_text(json.dumps(out, indent=1))
     for r in (dp, *out["device_profile_b1"].values()):
         r["top_kernels"] = r["top_kernels"][:5]  # the whole ranking stays in the file
     return out, launches
+
+
+# --- the folded stem and the yuv420 and jpegdct4 wires: phases 23-25 ------
+
+
+def timed_pyramid(det: PyramidDetector, packed, n: int = 3) -> dict:
+    """One PackedBatch through det n times after 2 warm-up runs: img/s,
+    ms/batch (host clock), peak memory, the finite outputs, and the
+    CUDA-event split of one more batch, every phase apart."""
+    dev = det.devices[0]
+    for _ in range(2):
+        det._fetch(det.detect_batch_async(packed))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        outs = det._fetch(det.detect_batch_async(packed))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    for o in outs:
+        check(o.ndim == 2 and o.shape[1] == 5 and np.isfinite(o).all(), f"{det.transfer}: output {o.shape}")
+    start = torch.cuda.Event(enable_timing=True)
+    det.trace = [("start", start)]
+    start.record()
+    det._fetch(det.detect_batch_async(packed))
+    split = {phase: a.elapsed_time(b) for (_, a), (phase, b) in zip(det.trace, det.trace[1:])}
+    det.trace = None
+    b = packed.hs.shape[0]
+    return {"img_per_s": n * b / wall, "batch_ms": 1000.0 * wall / n, "peak_gib": peak,
+            "split_ms": {k: round(v, 3) for k, v in split.items()},
+            "dets_per_image": float(np.mean([len(o) for o in outs]))}
+
+
+def in_turns(dets: dict, packed: dict, rounds: int = 2) -> dict:
+    """timed_pyramid of each detector in turns, A B B A for two, `rounds`
+    times each; per label the list of runs."""
+    labels = list(dets)
+    order = (labels + labels[::-1]) * (rounds // 2) + (labels if rounds % 2 else [])
+    runs: dict = {k: [] for k in labels}
+    for k in order:
+        runs[k].append(timed_pyramid(dets[k], packed[k]))
+    return runs
+
+
+def summary(runs: list) -> dict:
+    """Medians over in_turns' runs of one label (the split per phase)."""
+    keys = runs[0]["split_ms"].keys()
+    return {"img_per_s": [r["img_per_s"] for r in runs],
+            "batch_ms": float(np.median([r["batch_ms"] for r in runs])),
+            "peak_gib": max(r["peak_gib"] for r in runs),
+            "split_ms": {k: round(float(np.median([r["split_ms"][k] for r in runs])), 3) for k in keys},
+            "dets_per_image": runs[-1]["dets_per_image"]}
+
+
+def phase_fold(calibrated: TinyFacesDetector, templates_np, dev: torch.device, name: str) -> dict:
+    """Phase 23: the folded 2x stem on the card. (a) folded_stem_2x against
+    the 2x level's resize then conv1 on 4 normalized 768x1024 canvases of
+    the calibrated model's stem, fp32 with TF32 off (borders atol 2e-6,
+    everything atol 2e-5 / rtol 1e-5) and bf16 (0.03 of the output's
+    scale), the CPU test's tolerances; (b) the stem alone (stem_alone);
+    (c) EvalConfig() (the fold) against fold_stem=False at batch 32 bf16
+    in turns: img/s, the 2x level's "resize 1" and "forward 1", peak
+    memory."""
+    from tinyfaces_tpu_torch.ops.stemfold import folded_stem_2x
+
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "phase 23 compares fp32 with TF32 on")
+    rng = np.random.default_rng(23)
+    images = pink_images(rng, [(768, 1024)] * 4)
+    x = normalize_images(torch.from_numpy(np.stack(images)).to(dev)).permute(0, 3, 1, 2).contiguous()
+    w7 = calibrated.model.conv1.weight.detach()
+    size = torch.tensor([[768, 1024]] * 4, device=dev)
+    errs = {}
+    for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        xd = x.to(dtype)
+        with torch.no_grad():
+            want = F.conv2d(resize_batch(xd, (1536, 2048), size, 2 * size), w7.to(dtype), stride=2,
+                            padding=3).float()
+            got = folded_stem_2x(xd, w7).float()
+        check(got.shape == want.shape == (4, 64, 768, 1024), f"fold {label}: {tuple(got.shape)}")
+        diff = (got - want).abs()
+        scale = float(want.abs().max())
+        border = max(float(diff[:, :, :2].max()), float(diff[:, :, -2:].max()),
+                     float(diff[..., :2].max()), float(diff[..., -2:].max()))
+        errs[label] = {"max_abs_err": float(diff.max()), "border_max_abs_err": border, "scale": scale,
+                       "max_excess_over_rtol": float((diff - 1e-5 * want.abs()).max())}
+        if label == "fp32":
+            check(border <= 2e-6 and errs[label]["max_excess_over_rtol"] <= 2e-5,
+                  f"fold fp32 against resize+conv1: border {border:.3g} (atol 2e-6), everywhere "
+                  f"{errs[label]['max_excess_over_rtol']:.3g} beyond rtol 1e-5 (atol 2e-5)")
+        else:
+            check(float(diff.max()) <= 0.03 * scale, f"fold bf16: {float(diff.max()):.3g} > 0.03 x {scale:.3g}")
+        del want, got, diff
+    del x
+    torch.cuda.empty_cache()
+    print(f"folded stem against the 2x resize then conv1, 4 canvases 768x1024: fp32 (TF32 off) "
+          f"borders within {errs['fp32']['border_max_abs_err']:.3g}, everywhere "
+          f"{errs['fp32']['max_abs_err']:.3g} (scale {errs['fp32']['scale']:.3g}); bf16 "
+          f"{errs['bf16']['max_abs_err']:.3g} (0.03 x scale = {0.03 * errs['bf16']['scale']:.3g})",
+          flush=True)
+
+    images = pink_images(np.random.default_rng(6), [(768, 1024)] * 32)  # phase 6's batch
+    alone = stem_alone(images, w7, dev)
+    dets, packed = {}, {}
+    for label, fold in (("fold", True), ("resize", False)):
+        ec = EvalConfig(fold_stem=fold)
+        dets[label] = PyramidDetector(bf16_copy(calibrated, dev), templates_np, DetectorConfig(), ec,
+                                      device=dev)
+        packed[label] = dets[label].pack_inputs(images)
+    runs = in_turns(dets, packed)
+    out = {"card": name, "stem_vs_resize_conv1": errs, "stem_alone": alone,
+           **{k: summary(v) for k, v in runs.items()}}
+    del dets, packed
+    torch.cuda.empty_cache()
+    for k in ("fold", "resize"):
+        r, s = out[k], out[k]["split_ms"]
+        print(f"pyramid bf16 b32 768x1024 {'EvalConfig() (folded stem)' if k == 'fold' else 'fold_stem=False'}: "
+              f"{[round(v, 2) for v in r['img_per_s']]} img/s in turns, 2x level: resize "
+              f"{s['resize 1']:.3f} ms (the folded stem when folded) + forward {s['forward 1']:.3f} ms, "
+              f"peak {r['peak_gib']:.2f} GiB ({name})", flush=True)
+        print(f"  CUDA-event split (ms, median of the turns): {json.dumps(s)}", flush=True)
+    return out
+
+
+def stem_alone(images: list, w7: torch.Tensor, dev: torch.device) -> dict:
+    """The 2x level's stem alone on a batch of 32 768x1024 canvases, bf16:
+    CUDA-event ms (median of 10) and the peak memory above the canvas of
+    the folded stem, its 5x5 conv alone (NCHW, as the pyramid runs it, and
+    channels_last), the exact-2x resize, and the resize then conv1."""
+    from tinyfaces_tpu_torch.ops.stemfold import fold_stem_kernel, folded_stem_2x
+
+    x = normalize_images(torch.from_numpy(np.stack(images)).to(dev), dtype=torch.bfloat16)
+    x = x.permute(0, 3, 1, 2).contiguous()
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    k5 = fold_stem_kernel(w7).to(torch.bfloat16)
+    size = torch.tensor([[768, 1024]] * len(images), device=dev)
+    w7b = w7.to(torch.bfloat16)
+    variants = {
+        "folded_stem_2x": lambda: folded_stem_2x(x, w7),
+        "fold_conv_nchw": lambda: F.conv2d(x, k5, padding=2),
+        "fold_conv_channels_last": lambda: F.conv2d(x_cl, k5.contiguous(memory_format=torch.channels_last),
+                                                    padding=2),
+        "resize_2x": lambda: resize_batch(x, (1536, 2048), size, 2 * size),
+        "resize_2x_then_conv1": lambda: F.conv2d(resize_batch(x, (1536, 2048), size, 2 * size), w7b,
+                                                 stride=2, padding=3),
+    }
+    out = {}
+    with torch.no_grad():
+        for k, fn in variants.items():
+            ms = cuda_ms(fn, runs=10)
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            y = fn()
+            torch.cuda.synchronize(dev)
+            out[k] = {"ms": ms, "peak_gib_above_inputs": (torch.cuda.max_memory_allocated(dev) - base) / 2**30}
+            del y
+    del x, x_cl
+    torch.cuda.empty_cache()
+    print("  the 2x stem alone, b32 768x1024 bf16 (CUDA events, median of 10; peak above the canvas): "
+          + "; ".join(f"{k} {v['ms']:.3f} ms, {v['peak_gib_above_inputs']:.2f} GiB" for k, v in out.items()),
+          flush=True)
+    return out
+
+
+def phase_yuv420(calibrated: TinyFacesDetector, templates_np, dev: torch.device, name: str) -> dict:
+    """Phase 24 (pyramid half): phase 5 on the yuv420 wire (card against
+    the CPU), then phase 6's bf16 batch of 32 at 768x1024 on yuv420 and rgb
+    in turns: img/s with the pack done before, the split, the host pack
+    (the planes' conversion on 4 threads) per batch, peak memory."""
+    images = pink_images(np.random.default_rng(5), [(192, 256), (176, 248)])  # phase 5's
+    ec = EvalConfig(scales=(-1, 0, 1))
+    gpu = PyramidDetector(calibrated, templates_np, DetectorConfig(), ec, device=dev, transfer="yuv420")
+    cpu = PyramidDetector(copy.deepcopy(calibrated).cpu(), templates_np, DetectorConfig(), ec,
+                          device="cpu", transfer="yuv420")
+    vs_cpu = compare_with_cpu(gpu.detect_batch(images), cpu.detect_batch(images))
+    del gpu, cpu
+    print(f"yuv420 pyramid card vs CPU, ResNet-101 fp32, phase 5's images: {vs_cpu['pairs']} "
+          f"detections paired, {vs_cpu['unpaired']} unpaired near-ties, max box error "
+          f"{vs_cpu['max_box_err_px']:.3g} px, max score error {vs_cpu['max_score_err']:.3g}", flush=True)
+
+    images = pink_images(np.random.default_rng(6), [(768, 1024)] * 32)
+    dets, packed, pack_ms = {}, {}, {}
+    for t in ("yuv420", "rgb"):
+        dets[t] = PyramidDetector(bf16_copy(calibrated, dev), templates_np, DetectorConfig(), EvalConfig(),
+                                  device=dev, transfer=t)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            packed[t] = dets[t].pack_inputs(images)
+            times.append(1000.0 * (time.perf_counter() - t0))
+        pack_ms[t] = float(np.median(times))
+    runs = in_turns(dets, packed)
+    out = {"gpu_vs_cpu": vs_cpu, "wire_bytes_per_image": {t: packed[t].host[0].numel() for t in packed}}
+    for t in ("yuv420", "rgb"):
+        out[t] = {**summary(runs[t]), "pack_ms_per_batch": pack_ms[t]}
+    del dets, packed
+    torch.cuda.empty_cache()
+    for t in ("yuv420", "rgb"):
+        r = out[t]
+        print(f"pyramid bf16 b32 768x1024 on {t}: {[round(v, 2) for v in r['img_per_s']]} img/s in turns "
+              f"(pack before), unpack {r['split_ms']['unpack']:.3f} ms, upload {r['split_ms']['upload']:.3f} "
+              f"ms, host pack {r['pack_ms_per_batch']:.1f} ms/batch, wire "
+              f"{out['wire_bytes_per_image'][t]} B/image, peak {r['peak_gib']:.2f} GiB ({name})", flush=True)
+    return out
+
+
+def phase_train_cli_yuv420(ann: Path, dataset, dev: torch.device, name: str) -> tuple[dict, int]:
+    """Phase 24 (training half): `main.run --transfer yuv420 --epochs 2` on
+    phase 8's tree, entered with TF32 on: TF32 turned off, every sample from
+    the C++ engine and then converted to planes in the loader threads, K1
+    once a step, losses finite; ms/step and the loader's wait (above ~1 ms a
+    step the step is host-bound)."""
+    out = ROOT / "build" / "chip_smoke" / "train_cli_yuv420"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    tc = TrainConfig()
+    native.counters.update(samples=0, seconds=0.0)
+    assignment_kernel.launch_count = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer = run_train_cli(ann, dataset, dev, out / "run", "--transfer", "yuv420", "--epochs", "2",
+                            "--save-every", "2", "--metrics-log", str(out / "run.jsonl"))
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = assignment_kernel.launch_count
+    steps = 2 * (len(dataset) // tc.batch_size)
+    check(trainer.transfer == "yuv420" and trainer.step == steps and launches == steps,
+          f"yuv420 CLI: {launches} kernel launches in {trainer.step} steps, want {steps}")
+    check(native.counters["samples"] == steps * tc.batch_size,
+          f"{native.counters['samples']} samples from the C++ engine in {steps} steps")
+    check(trainer.skipped_steps == 0, f"{trainer.skipped_steps} non-finite steps")
+    recs, ends = step_records(out / "run.jsonl")
+    check(len(recs) == steps and all(np.isfinite([r["loss_cls_step"], r["loss_reg_step"]]).all()
+                                     for r in recs), "yuv420 CLI: per-step losses")
+    check((out / "run" / "weights" / "checkpoint_2").is_file(), "yuv420 CLI: checkpoint_2 missing")
+    wait = trainer.loader_wait_ms[1:]
+    del trainer
+    gc.collect()
+    img_s = [r["images_per_sec"] for r in ends]
+    res = {"card": name, "steps": steps, "ms_per_step": [1000.0 * tc.batch_size / v for v in img_s],
+           "img_per_s": img_s, "loader_wait_ms_per_step": float(np.mean(wait)),
+           "loader_wait_ms_max": float(np.max(wait)), "host_bound": bool(np.mean(wait) > 1.0),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "wall_s": wall}
+    print(f"train CLI yuv420 ResNet-101 B={tc.batch_size} 500x500 fp32 on phase 8's tree: "
+          f"{[round(v, 2) for v in res['ms_per_step']]} ms/step, {[round(v, 2) for v in img_s]} img/s "
+          f"per epoch, loader wait {res['loader_wait_ms_per_step']:.3f} ms/step in epoch 2 (max "
+          f"{res['loader_wait_ms_max']:.2f}; "
+          + ("above 1 ms: the step is host-bound" if res["host_bound"] else "the step is not host-bound")
+          + f"), K1 {launches} launches in {steps} steps, peak {res['peak_gib']:.2f} GiB ({name})", flush=True)
+    return res, launches
+
+
+def phase_jpegdct4(calibrated: TinyFacesDetector, templates_np, fixtures: dict, dev: torch.device,
+                   name: str) -> dict:
+    """Phase 25: the jpegdct4 wire. (a) The v4 reconstruction of the
+    768x1024-bucket fixtures on the card against the CPU, entered with TF32
+    on: planes within 1e-3 px, normalized RGB within 6e-5 (phase 10's);
+    (b) on the card, every block whose values v4's stream shipped whole
+    reconstructs to v3's pixels bit for bit (the noisy fixtures overflow
+    the stream, so some blocks lose their tail); (c) phase 12's bf16 batch
+    of 32 on jpegdct4 and jpegdct in turns: img/s, the split, host pack,
+    wire B/px, truncation."""
+    data = in_bucket(fixtures, (768, 1024))
+    b = len(data)
+    wire = torch.from_numpy(jpegdct.pack_dct_batch(data, 768, 1024, wire_version=4)["_wire"])
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        fields = [jpeg_ops.wire_fields(w, 768, 1024, version=4) for w in (wire, wire.to(dev))]
+        px_err = 0.0
+        for p, nh, nw, z in (("y", 96, 128, jpegdct.Z_KEEP_Y), ("u", 48, 64, jpegdct.Z_KEEP_C),
+                             ("v", 48, 64, jpegdct.Z_KEEP_C)):
+            q = "q_y" if p == "y" else "q_c"
+            want, got = (jpeg_ops.reconstruct_plane_sparse(
+                f[f"{p}_dc"], f[f"{p}_bm"], f[f"{p}_vals"], f[f"{p}_esc_idx"], f[f"{p}_esc_val"], f[q],
+                nbh=nh, nbw=nw, z=z, order=f["h0w0"][:, 2] if p == "y" else None) for f in fields)
+            px_err = max(px_err, (got.cpu() - want).abs().max().item())
+        want = jpeg_ops.dct4_batch_to_normalized({"_wire": wire}, 768, 1024)
+        got = jpeg_ops.dct4_batch_to_normalized({"_wire": wire.to(dev)}, 768, 1024).cpu()
+        norm_err = (got - want).abs().max().item()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    check(px_err <= 1e-3 and norm_err <= 6e-5,
+          f"v4 reconstruction card vs CPU: planes {px_err} px, normalized {norm_err} (TF32 on)")
+
+    # (b) v4 keeps a prefix of each plane's value stream: a block whose
+    # values all made it into the stream (its popcount equals the number
+    # of nonzero ACs v3 ships for it) must reconstruct to v3's pixels.
+    w3 = torch.from_numpy(jpegdct.pack_dct_batch(data, 768, 1024)["_wire"]).to(dev)
+    f3 = jpeg_ops.wire_fields(w3, 768, 1024)
+    f4 = fields[1]
+    complete = {}
+    for p, nh, nw, z in (("y", 96, 128, jpegdct.Z_KEEP_Y), ("u", 48, 64, jpegdct.Z_KEEP_C),
+                         ("v", 48, 64, jpegdct.Z_KEEP_C)):
+        q = "q_y" if p == "y" else "q_c"
+        ac = f3[f"{p}_ac"].reshape(b, nh * nw, z)
+        r3 = jpeg_ops.reconstruct_plane_dense(f3[f"{p}_dc"], ac, f3[f"{p}_esc_idx"], f3[f"{p}_esc_val"],
+                                              f3[q], nbh=nh, nbw=nw)
+        r4 = jpeg_ops.reconstruct_plane_sparse(f4[f"{p}_dc"], f4[f"{p}_bm"], f4[f"{p}_vals"],
+                                               f4[f"{p}_esc_idx"], f4[f"{p}_esc_val"], f4[q], nbh=nh,
+                                               nbw=nw, z=z, order=f4["h0w0"][:, 2] if p == "y" else None)
+        whole = jpeg_ops._popcount32(f4[f"{p}_bm"]) == (ac != 0).sum(-1)  # (b, blocks)
+        blocks = lambda r: r.view(b, nh, 8, nw, 8).permute(0, 1, 3, 2, 4).reshape(b, nh * nw, 64)  # noqa: E731
+        check(torch.equal(blocks(r3)[whole], blocks(r4)[whole]),
+              f"v4 plane {p}: blocks with every value shipped differ from v3's reconstruction")
+        complete[p] = [int(whole.sum()), whole.numel()]
+        check(complete[p][0] > 0, f"v4 plane {p}: no block shipped whole")
+    del w3, f3, f4, fields
+    print(f"jpegdct4 reconstruction card vs CPU, {b} images 768x1024, TF32 on: planes within "
+          f"{px_err:.3g} px, normalized RGB within {norm_err:.3g}; on the card bit-equal to v3's in every "
+          f"block v4 shipped whole (blocks whole / all, Y Cb Cr: {complete})", flush=True)
+
+    images = [data[i % b] for i in range(32)]
+    dets, packed, pack_ms, trunc = {}, {}, {}, {}
+    for t in ("jpegdct4", "jpegdct"):
+        dets[t] = PyramidDetector(bf16_copy(calibrated, dev), templates_np, DetectorConfig(), EvalConfig(),
+                                  device=dev, transfer=t)
+        times = []
+        for _ in range(3):
+            before = jpegdct.truncation_stats()
+            t0 = time.perf_counter()
+            packed[t] = dets[t].pack_inputs(images)
+            times.append(1000.0 * (time.perf_counter() - t0))
+            after = jpegdct.truncation_stats()
+        pack_ms[t] = float(np.median(times))
+        trunc[t] = {k: after[k] - before[k] for k in after}
+    runs = in_turns(dets, packed)
+    out = {"card": name, "unpack_vs_cpu": {"images": b, "max_plane_err_px": px_err,
+                                           "max_normalized_err": norm_err},
+           "blocks_bit_equal_to_v3": complete}
+    for t in ("jpegdct4", "jpegdct"):
+        out[t] = {**summary(runs[t]), "pack_ms_per_batch": pack_ms[t],
+                  "wire_Bpx": packed[t].host.shape[1] / (768 * 1024),
+                  "truncation_per_batch": trunc[t]}
+    del dets, packed
+    torch.cuda.empty_cache()
+    for t in ("jpegdct4", "jpegdct"):
+        r = out[t]
+        print(f"pyramid bf16 b32 768x1024 on {t} from the fixtures' bytes: "
+              f"{[round(v, 2) for v in r['img_per_s']]} img/s in turns, wire {r['wire_Bpx']:.4f} B/px, "
+              f"upload {r['split_ms']['upload']:.3f} ms, unpack {r['split_ms']['unpack']:.3f} ms, host "
+              f"pack {r['pack_ms_per_batch']:.1f} ms/batch, truncation per batch "
+              f"{r['truncation_per_batch']}, peak {r['peak_gib']:.2f} GiB ({name})", flush=True)
+    return out
 
 
 # --- multi-process training and evaluation: phases 18-21 (A-D) -----------
@@ -2256,12 +2642,20 @@ def main() -> None:
            **phase_dct_sweep_and_service(model, templates_np, fixtures, dev)}
     accuracy = {"card": name, "pil_resize": phase_pil_resize(dev),
                 "pil_pyramid": phase_pil_pyramid(model, templates_np, dev, name)}
+    t0 = time.perf_counter()
+    wires = {"card": name, "fold": phase_fold(model, templates_np, dev, name),
+             "yuv420": phase_yuv420(model, templates_np, dev, name),
+             "jpegdct4": phase_jpegdct4(model, templates_np, fixtures, dev, name)}
+    t_wires = time.perf_counter() - t0
     del model
     torch.cuda.empty_cache()
     train_cli_result, cli_launches, ann, train_set = phase_train_cli(templates_np, dev, name)
     t0 = time.perf_counter()
     dist_result["world1_group"], group_launches = phase_world1_group(ann, train_set, dev, name)
     t_dist += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wires["yuv420"]["train_cli"], yuv_launches = phase_train_cli_yuv420(ann, train_set, dev, name)
+    wires["phases_23_25_s"] = t_wires + time.perf_counter() - t0
     del train_set
     dct["train_cli"], dct_launches = phase_train_cli_jpegdct(templates_np, fixtures, dev, name)
     gc.collect()
@@ -2270,12 +2664,15 @@ def main() -> None:
     instruments, instrument_launches = phase_instruments(dev, name, dct["bf16"]["img_per_s"])
     dist_result["phases_18_21_s"] = t_dist
     print(f"phases 18-21 (multi-process training and evaluation) took {t_dist:.1f} s", flush=True)
+    print(f"phases 23-25 (the folded stem, yuv420, jpegdct4) took {wires['phases_23_25_s']:.1f} s",
+          flush=True)
     print(f"all phases passed in {time.perf_counter() - start:.1f} s ({name})", flush=True)
     print(json.dumps({"inference": {"card": name, "gpu_vs_cpu": vs_cpu, **full, **served}}))
     print(json.dumps({"train_cli": train_cli_result}))
     print(json.dumps({"jpegdct": dct}))
     print(json.dumps({"accuracy": accuracy}))
     print(json.dumps({"distributed": dist_result}))
+    print(json.dumps({"wires": wires}))
     print(json.dumps({"instruments": instruments}))
     print(json.dumps({"kernels": [{
         "name": "dense_assignment_reductions",
@@ -2283,9 +2680,10 @@ def main() -> None:
         "source": "tinyfaces_tpu_torch/csrc/dense_assignment.cu",
         "replaces": "tinyfaces_tpu/ops/pallas_assignment.py:209",
         "launches": (launches + cli_launches + dct_launches + e2e_launches + group_launches
-                     + world_n_launches + stop_launches + instrument_launches),
+                     + world_n_launches + stop_launches + instrument_launches + yuv_launches),
         "launches_by_path": {"train_epoch": launches, "train_cli": cli_launches,
-                             "train_cli_jpegdct": dct_launches, "e2e_train": e2e_launches,
+                             "train_cli_jpegdct": dct_launches, "train_cli_yuv420": yuv_launches,
+                             "e2e_train_yuv420": e2e_launches,
                              "train_cli_world1_group": group_launches,
                              "world_n_all_ranks_and_world1_replays": world_n_launches, "agreed_stop_all_ranks": stop_launches,
                              "instruments": instrument_launches},

@@ -118,8 +118,11 @@ def test_run_main_argv_sigterm_and_launches(tmp_path, monkeypatch):
                        str(tmp_path / "m.jsonl"), "--transfer", "jpegdct", "--nan-guard",
                        "--save-every", "1000", "--device", "cpu", "--arch", "resnet50"]
     assert kw["cwd"] == tmp_path and kw["env"]["PYTHONPATH"].split(":")[0] == str(train_soak.REPO)
-    with pytest.raises(SystemExit, match="item 15"):
-        train_soak.run_main(tree, tmp_path, tmp_path / "m.jsonl", 1, 2, [], transfer="yuv420")
+    # the default wire is the JAX tool's, yuv420
+    train_soak.run_main(tree, tmp_path, tmp_path / "m.jsonl", 1, 2, [], device="cpu")
+    assert seen[-1][0][seen[-1][0].index("--transfer") + 1] == "yuv420"
+    with pytest.raises(SystemExit, match="unknown --transfer"):
+        train_soak.run_main(tree, tmp_path, tmp_path / "m.jsonl", 1, 2, [], transfer="png")
 
 
 def test_training_cli_reports_its_launches(monkeypatch, capsys):
@@ -185,7 +188,8 @@ def test_e2e_accuracy_drives_train_eval_and_grading(tmp_path, monkeypatch, sigte
                                 "--device", "cpu", "--sigterm-epoch", str(sigterm_epoch)])
     assert json.loads((tmp_path / "E2E_ACCURACY.json").read_text()) == result
     assert [c["extra"][:4] for c in calls] == [["--arch", "resnet101", "--save-every", "3"]] * len(calls)
-    assert all(c["device"] == "cpu" and c["transfer"] == "rgb" and c["batch"] == 2 for c in calls)
+    # the train leg's wire defaults to the JAX tool's, yuv420
+    assert all(c["device"] == "cpu" and c["transfer"] == "yuv420" and c["batch"] == 2 for c in calls)
     if sigterm_epoch < 0:
         assert len(calls) == 1 and result["resume_seam"] is None and result["k1_launches"] == 4
     else:
@@ -204,8 +208,8 @@ def test_e2e_accuracy_drives_train_eval_and_grading(tmp_path, monkeypatch, sigte
     assert all(v["recall"] == 1.0 for k, v in result["recall_by_height"].items()
                if k.endswith("px") and v["gt"])
     assert result["loss_cls_per_epoch"][0] > result["loss_cls_per_epoch"][-1]
-    with pytest.raises(SystemExit, match="item 15"):
-        e2e_accuracy.main(["--workdir", str(tmp_path), "--train-transfer", "yuv420"])
+    with pytest.raises(SystemExit):
+        e2e_accuracy.main(["--workdir", str(tmp_path), "--train-transfer", "png"])
 
 
 def test_ap_cost_runs_the_four_configs(tmp_path, monkeypatch):
@@ -302,5 +306,14 @@ def test_parity_run_synthetic_on_the_cpu(tmp_path, monkeypatch):
     assert all(0.0 <= v <= 1.0 for v in payload["scores"].values())
     assert payload["ab_check"]["images"] == 1 and payload["device"] == "cpu"
     assert len(list((tmp_path / "parity_val_results").glob("*/*.txt"))) == 2
-    with pytest.raises(SystemExit, match="item 15"):
-        parity_run.main(["--synthetic", "1", "--transfer", "yuv420", "--device", "cpu"])
+    # every wire runs; resample="pil" takes only rgb, as in the JAX package
+    for transfer in ("yuv420", "jpegdct4"):
+        payload = parity_run.main(["--synthetic", "1", "--dataset-root", str(tmp_path / "root"),
+                                   "--ab-images", "0", "--eval-batch", "1", "--device", "cpu",
+                                   "--prob_thresh", "0.1", "--transfer", transfer, "--resample",
+                                   "linear"])
+        assert payload["transfer"] == transfer and set(payload["scores"]) == {
+            "all", "easy~", "medium~", "hard~"}
+    with pytest.raises(ValueError, match="transfer='rgb'"):
+        parity_run.main(["--synthetic", "1", "--dataset-root", str(tmp_path / "root"),
+                         "--transfer", "yuv420", "--device", "cpu"])

@@ -4,8 +4,11 @@ model's `remat`, on the CPU at a tiny size.
 * The benches' inputs are the root benches' (bench.natural_images,
   bench_train.make_synthetic_train_batch) bit for bit for the same seeds.
 * Each bench's CLI ends with one JSON line of exactly the JAX contract's
-  four keys; choices that ROADMAP item 15 holds exit naming it, and so
-  does every instrument's; `--device cuda` without a card exits.
+  four keys on every wire it takes (the pyramid's four, the train step's
+  three, whose yuv420 batches are the root bench's); `train_bench --multi`,
+  which ROADMAP item 15 holds, exits naming it, every instrument takes the
+  yuv420 and jpegdct4 wires it lists, and `--device cuda` without a card
+  exits.
 * `remat=True` gives one Trainer.train_step's loss, gradients, parameters
   and BN running statistics of `remat=False` (rtol 1e-6; on the CPU they
   are bit-equal); under a process group of two (collectives faked in one
@@ -71,7 +74,7 @@ def _last_line(capsys) -> dict:
     return json.loads(lines[-1])
 
 
-@pytest.mark.parametrize("transfer", ["jpegdct", "rgb"])
+@pytest.mark.parametrize("transfer", ["jpegdct", "rgb", "yuv420", "jpegdct4"])
 def test_bench_prints_the_contract_line(transfer, monkeypatch, capsys):
     for k, v in {"BENCH_TRANSFER": transfer, "BENCH_BATCH": "2", "BENCH_ITERS": "2",
                  "BENCH_WINDOWS": "2"}.items():
@@ -81,12 +84,16 @@ def test_bench_prints_the_contract_line(transfer, monkeypatch, capsys):
     assert set(line) == {"metric", "value", "unit", "vs_baseline"}
     assert line["metric"] == "pyramid_inference_images_per_sec_per_chip"
     assert line["unit"] == "images/sec/chip" and line["value"] > 0
-    assert line["vs_baseline"] == round(line["value"] / 3.0, 3)
+    # both rounded from the unrounded rate (rounding the rounded value can differ)
+    assert line["value"] == round(out["value"], 3)
+    assert line["vs_baseline"] == round(out["value"] / 3.0, 3)
     assert len(out["window_rates"]) == 2 and out["flops_per_image"] > 0
     assert {"pack_ms", "enqueue_ms", "wait_ms", "total_ms"} <= set(out["batch1"])
+    assert out["wire_Bpx"] == bench.wire_bytes_per_px(transfer, 64, 96)
+    assert out["wire_Bpx"] == {"rgb": 3.0, "yuv420": 1.5}.get(transfer, out["wire_Bpx"])
 
 
-@pytest.mark.parametrize("transfer", ["rgb", "jpegdct"])
+@pytest.mark.parametrize("transfer", ["rgb", "jpegdct", "yuv420"])
 def test_bench_train_prints_the_contract_line(transfer, monkeypatch, capsys):
     monkeypatch.setenv("BENCH_TRANSFER", transfer)
     monkeypatch.setenv("BENCH_BATCH", "2")
@@ -98,7 +105,8 @@ def test_bench_train_prints_the_contract_line(transfer, monkeypatch, capsys):
     line = _last_line(capsys)
     assert set(line) == {"metric", "value", "unit", "vs_baseline"}
     assert line["metric"] == "train_step_images_per_sec_per_chip" and line["value"] > 0
-    assert line["vs_baseline"] == round(line["value"] / 18.0, 3)
+    assert line["value"] == round(out["value"], 3)
+    assert line["vs_baseline"] == round(out["value"] / 18.0, 3)
     assert out["steps"] == 2 and np.isfinite(out["last_loss"])
     assert out["k1_launches"] == 0  # the CPU takes K1's twin
 
@@ -111,13 +119,30 @@ def _exits_naming_item15(fn):
 
 @pytest.mark.parametrize("transfer", ["yuv420", "jpegdct4"])
 def test_bench_item15_wires_exit(transfer, monkeypatch):
-    monkeypatch.setenv("BENCH_TRANSFER", transfer)
-    _exits_naming_item15(lambda: bench.main(["--device", "cpu"]))
+    """The wires ROADMAP item 15 held run now (test_bench_prints_the_
+    contract_line); an unknown one exits."""
+    assert transfer in bench.TRANSFERS
+    monkeypatch.setenv("BENCH_TRANSFER", transfer[::-1])
+    with pytest.raises(SystemExit, match="unknown transfer"):
+        bench.main(["--device", "cpu"])
 
 
 def test_bench_train_yuv420_exits(monkeypatch):
-    monkeypatch.setenv("BENCH_TRANSFER", "yuv420")
-    _exits_naming_item15(lambda: bench_train.main(["--device", "cpu"]))
+    """yuv420 runs (test_bench_train_prints_the_contract_line), its batches
+    the root bench's bit for bit; an unknown wire exits."""
+    rng_a, rng_b = np.random.default_rng(2), np.random.default_rng(2)
+    got = bench_train.yuv420_pack(bench_train.make_synthetic_train_batch(rng_a, 2, DetectorConfig()))
+    plain = jax_bench_train.make_synthetic_train_batch(rng_b, 2, JaxDetectorConfig())
+    from tinyfaces_tpu.data.targets import rgb_to_yuv420
+
+    y, u, v = rgb_to_yuv420(plain.pop("image"))
+    want = {**plain, "image_y": y, "image_u": u, "image_v": v}
+    assert got.keys() == want.keys()
+    for k in got:
+        assert np.array_equal(got[k], want[k]), k
+    monkeypatch.setenv("BENCH_TRANSFER", "yuv422")
+    with pytest.raises(SystemExit, match="unknown transfer"):
+        bench_train.main(["--device", "cpu"])
 
 
 @pytest.mark.parametrize("tool,argv", [
@@ -127,11 +152,18 @@ def test_bench_train_yuv420_exits(monkeypatch):
     ("device_profile", ["--transfer", "yuv420"]),
     ("eval_sweep_bench", ["--transfer", "jpegdct4"]),
 ])
-def test_tools_item15_choices_exit(tool, argv):
+def test_tools_item15_choices_exit(tool, argv, monkeypatch):
+    """`train_bench --multi` still exits naming ROADMAP item 15; the wires
+    it held get past the tools' checks to the device (here a missing card)."""
     import importlib
 
     mod = importlib.import_module(f"tinyfaces_tpu_torch.tools.{tool}")
-    _exits_naming_item15(lambda: mod.main(argv + ["--device", "cpu"]))
+    if tool == "train_bench":
+        _exits_naming_item15(lambda: mod.main(argv + ["--device", "cpu"]))
+        return
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="is_available"):
+        mod.main(argv + ["--device", "cuda"])
 
 
 def test_cuda_without_a_card_exits(monkeypatch):

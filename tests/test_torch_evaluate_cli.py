@@ -121,7 +121,9 @@ def test_argument_surface_matches_jax(tmp_path):
         assert mine[k] == v
 
     ann = _tree(tmp_path)
-    for extra, item in ((["--transfer", "jpegdct4"], "item 15"), (["--transfer", "yuv420"], "item 15"),
+    # yuv420 and jpegdct4 run (tests/test_torch_{yuv420,jpegdct4}.py); pil needs rgb
+    for extra, item in ((["--transfer", "jpegdct4", "--resample", "pil"], "transfer='rgb'"),
+                        (["--transfer", "yuv420", "--resample", "pil"], "transfer='rgb'"),
                         (["--resample", "pil"], "transfer='rgb'"), (["--shard", "auto"], "item 15"),
                         (["--shard", "spatial"], "item 15"), (["--bf16", "--fp32"], "exclusive")):
         with pytest.raises(SystemExit, match=item):

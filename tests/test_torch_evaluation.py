@@ -190,8 +190,12 @@ def test_unported_options_raise():
         torch.device("cpu")] * 2  # data-parallel, tests/test_torch_distributed.py
     with pytest.raises(ValueError, match="mix device types"):
         evaluation.PyramidDetector(model, TEMPLATES, device=["cpu", "cuda"])
-    for kw, item in ((dict(transfer="yuv420"), "item 15"),
-                     (dict(transfer="jpegdct4"), "item 15"), (dict(shard="auto"), "item 15"),
+    for transfer in ("yuv420", "jpegdct4"):  # tests/test_torch_{yuv420,jpegdct4}.py
+        assert evaluation.PyramidDetector(model, TEMPLATES, device="cpu",
+                                          transfer=transfer).transfer == transfer
+    for kw, item in ((dict(transfer="yuv422"), "unknown transfer"),
+                     (dict(transfer="yuv420", ec=EvalConfig(resample="pil")), "transfer='rgb'"),
+                     (dict(shard="auto"), "item 15"),
                      (dict(shard="spatial"), "item 15"),
                      (dict(ec=EvalConfig(resample="pil"), transfer="jpegdct"), "transfer='rgb'"),
                      (dict(ec=EvalConfig(resample="nearest")), "resample")):

@@ -63,6 +63,16 @@ assert {"tinyfaces_tpu_torch.bench", "tinyfaces_tpu_torch.bench_train",
     "tinyfaces_tpu_torch.tools." + t for t in (
         "train_bench", "profile_model", "device_profile", "pipeline_profile", "jpegdct_ceiling",
         "serving_bench", "eval_sweep_bench", "loader_bench", "wire_stats")} <= set(names)
+# the folded stem, the yuv420 and jpegdct4 wires and the debug rendering run without PIL
+import numpy as np
+assert {"tinyfaces_tpu_torch.ops.stemfold", "tinyfaces_tpu_torch.data.debug"} <= set(names)
+from tinyfaces_tpu_torch.data.targets import rgb_to_yuv420
+y, u, v = rgb_to_yuv420(np.full((1, 4, 6, 3), 200, np.uint8))
+assert y.shape == (1, 4, 6) and u.shape == v.shape == (1, 2, 3) and int(y[0, 0, 0]) == 200
+assert hasattr(jpegdct.load(), "tf_jpeg_dct_pack_sparse")
+wire = jpegdct.pack_dct_batch([open("tests/torch_jpeg/odd_197x263_q90.jpg", "rb").read()], 256, 320,
+                              wire_version=4)["_wire"]
+assert wire.shape == (1, jpegdct.wire_layout_v4(256, 320)["__total__"])
 # multi-process training and evaluation, and the worker of their CPU tests
 assert {"tinyfaces_tpu_torch.parallel.distributed", "tinyfaces_tpu_torch.parallel.mesh"} <= set(names)
 importlib.import_module("tests.torch_dist_worker")
@@ -92,6 +102,22 @@ def test_config_constants_and_templates_match_jax():
         assert getattr(port_config, name) == getattr(jax_config, name), name
     assert port_config.DetectorConfig().out_channels == jax_config.DetectorConfig().out_channels
     assert port_data.TEMPLATE_FILE.read_bytes() == jax_data.TEMPLATE_FILE.read_bytes()
+
+
+def test_wire_and_stem_constants_match_jax():
+    """The port's own copies of the JAX package's constants: the stem's
+    phase matrix, the JPEG wires' cutoffs and v4 budgets, and the neutral
+    YCbCr of the canvas fill."""
+    from tinyfaces_tpu.data import jpegdct as jax_jpegdct
+    from tinyfaces_tpu.ops import stemfold as jax_stemfold
+    from tinyfaces_tpu_torch.data import jpegdct
+    from tinyfaces_tpu_torch.ops import stemfold
+
+    assert (stemfold.PHASE_G == jax_stemfold.PHASE_G).all()
+    for name in ("Z_KEEP_Y", "Z_KEEP_C", "ESC_PER_BLOCK", "VALS_PER_BLOCK_Y", "VALS_PER_BLOCK_C"):
+        assert getattr(jpegdct, name) == getattr(jax_jpegdct, name), name
+    assert (jpegdct.ZIGZAG == jax_jpegdct.ZIGZAG).all()
+    assert jpegdct._neutral_ycc() == jax_jpegdct._neutral_ycc()
 
 
 def test_step_timer_matches_jax_on_a_scripted_clock(monkeypatch):

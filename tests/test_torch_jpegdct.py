@@ -200,8 +200,12 @@ def test_transcode_with_and_without_pil(monkeypatch):
 
 
 def test_wire_version_4_is_not_ported():
-    with pytest.raises(ValueError, match="item 15"):
-        jpegdct.pack_dct_batch(_jpegs()[:1], 256, 320, wire_version=4)
+    """Wire version 4 is ported (tests/test_torch_jpegdct4.py); an unknown
+    version, a canvas off the 16-px grid and a foreign input raise."""
+    assert jpegdct.pack_dct_batch(_jpegs()[:1], 256, 320, wire_version=4)["_wire"].shape == (
+        1, jpegdct.wire_layout_v4(256, 320)["__total__"])
+    with pytest.raises(ValueError, match="wire version"):
+        jpegdct.pack_dct_batch(_jpegs()[:1], 256, 320, wire_version=5)
     with pytest.raises(ValueError, match="multiple of 16"):
         jpegdct.wire_layout(100, 320)
     with pytest.raises(TypeError, match="JPEG bytes"):

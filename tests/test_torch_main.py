@@ -5,8 +5,9 @@ plus `--device`. End to end at a cut depth (ResNet-50's stages set to
 (1, 1, 1)), batch 2, on a small JPEG tree: `--epochs 1` and then `--resume
 weights/checkpoint_1 --epochs 2` leave a state_dict bit-equal to an
 uninterrupted `--epochs 2` run; the JSONL records carry the JAX trainer's
-keys; SIGTERM during epoch 0 writes checkpoint_1 and stops; the unported
-options and multi-process runs that cannot start exit, and `--device cuda` without a GPU
+keys; SIGTERM during epoch 0 writes checkpoint_1 and stops (`--transfer
+yuv420`: tests/test_torch_yuv420.py); multi-process runs that cannot start
+exit, and `--device cuda` without a GPU
 exits; without `--bf16` TF32 is off. A reference .pth reads as the JAX package's converter reads it, and
 `--pretrained-backbone` loads only its backbone.
 """
@@ -155,7 +156,8 @@ def test_sigterm_checkpoints_and_stops(tree, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--transfer", "yuv420"], "item 15"),
+    (["--transfer", "yuv420", "--num-processes", "3", "--coordinator-address", "file:///x"],
+     "global batch"),
     (["--transfer", "jpegdct", "--num-processes", "3", "--coordinator-address", "file:///x"],
      "global batch"),
     (["--num-processes", "2"], "needs --coordinator-address"),

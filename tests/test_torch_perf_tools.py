@@ -49,17 +49,19 @@ def test_measure_equals_the_jax_tool(kind, quality):
     imgs = wire_stats.content_images(kind, 2, 64, 96, seed=0)
     got = wire_stats.measure(imgs, 64, 96, quality)
     want = jax_wire_stats.measure(imgs, 64, 96, quality)
-    assert set(got) == {"jpeg_Bpx", "nonzero_ac", "v3_Bpx", "v3_drop_pct"}
+    assert set(got) == {"jpeg_Bpx", "nonzero_ac", "v3_Bpx", "v3_drop_pct", "v4_Bpx", "v4_drop_pct"}
     for k in got:
         assert got[k] == want[k], k
 
 
 def test_wire_stats_cli(capsys):
     rows = wire_stats.main(CPU + ["--n", "1", "--h", "32", "--w", "48", "--json", "--psnr"])
-    assert len(rows) == 16 and all(np.isfinite(r["v3_psnr_db"]) for r in rows.values())
+    assert len(rows) == 16 and all(np.isfinite(r["v3_psnr_db"]) and np.isfinite(r["v4_psnr_db"])
+                                   for r in rows.values())
     assert json.loads(capsys.readouterr().out) == json.loads(json.dumps(rows))
     wire_stats.main(CPU + ["--n", "1", "--h", "32", "--w", "48"])
-    assert "ROADMAP item 15" in capsys.readouterr().out.splitlines()[-1]
+    out = capsys.readouterr().out.splitlines()
+    assert "v4B/px" in out[0] and "worst v4 truncation" in out[-1]
 
 
 def test_jpeg_writing_exits_naming_pil_without_it(monkeypatch):
@@ -238,3 +240,24 @@ def test_loader_bench_cpu(tmp_path):
                             hw_range=((60, 100), (70, 110)))
     assert out["python"]["samples"] == out["native"]["samples"] == 12
     assert out["native_speedup"] > 0
+
+
+def test_instruments_on_the_new_wires(tmp_path, capsys):
+    """jpegdct_ceiling on the v4 wire, the serving bench on its default
+    (yuv420, the JAX tool's) and the sweep bench on jpegdct4 and yuv420 run
+    on the CPU."""
+    out = jpegdct_ceiling.main(CPU + ["--batch", "2", "--iters", "2", "--transfer", "jpegdct4"],
+                               hw=(64, 96), **TINY)
+    assert out["transfer"] == "jpegdct4" and out["img_per_s"] > 0
+    from tinyfaces_tpu_torch.data import jpegdct
+
+    # 64x96 images sit in the 64x128 canvas bucket
+    assert out["wire_MiB_per_batch"] == 2 * jpegdct.wire_layout_v4(64, 128)["__total__"] / 2**20
+    rows = serving_bench.main(CPU + ["--loads", "20", "--duration", "0.5", "--max-batch", "2",
+                                     "--size", "64x96"], **TINY)
+    assert rows[0]["transfer"] == "yuv420" and rows[0]["n"] > 0
+    for transfer in ("jpegdct4", "yuv420"):
+        out = eval_sweep_bench.main(CPU + ["--n", "2", "--eval-batch", "2", "--transfer", transfer,
+                                           "--root", str(tmp_path / transfer)],
+                                    sizes=((64, 96),), **TINY)
+        assert out["transfer"] == transfer and out["pipelined"]["img_per_s"] > 0

@@ -13,8 +13,9 @@ natural-photo spectral statistics, the format WIDER images arrive in.
 The wire is `jpegdct` by default: the host entropy-decodes the JPEG (C++,
 threaded) and ships quantized DCT coefficients; the card dequantizes,
 inverts the DCT, upsamples chroma and normalizes before the pyramid.
-BENCH_TRANSFER=rgb ships the decoded uint8 pixels instead; `yuv420` and
-`jpegdct4` are ROADMAP item 15's and exit.
+BENCH_TRANSFER=jpegdct4 ships the bitmap-sparse wire v4 of the same files;
+rgb ships the decoded uint8 pixels and yuv420 them as planar YCbCr 4:2:0
+(converted on the host in the pack thread).
 
 Two host stages keep BENCH_DEPTH batches in flight: a pack thread
 (`PyramidDetector.pack_inputs`) and an upload + dispatch thread
@@ -62,7 +63,7 @@ from tinyfaces_tpu_torch.models.resnet import RESNET101_STAGES
 
 BASELINE_IMGS_PER_SEC = 3.0  # estimated reference-on-A100 (see docstring)
 METRIC = "pyramid_inference_images_per_sec_per_chip"
-TRANSFERS = ("jpegdct", "rgb")
+TRANSFERS = ("jpegdct", "jpegdct4", "rgb", "yuv420")
 
 
 def natural_images(n, h, w, seed=0):
@@ -88,18 +89,29 @@ def natural_images(n, h, w, seed=0):
 
 def bench_inputs(transfer: str, batch: int, h: int, w: int, quality: int = 90,
                  content: str = "natural") -> list:
-    """The batch the bench rotates: JPEG bytes on jpegdct, arrays on rgb."""
+    """The batch the bench rotates: JPEG bytes on the JPEG wires, arrays on
+    rgb and yuv420."""
     if content == "natural":
         images = natural_images(batch, h, w)
     else:
         from tinyfaces_tpu_torch.tools.wire_stats import content_images
 
         images = content_images(content, batch, h, w)
-    if transfer == "jpegdct":
+    if transfer.startswith("jpegdct"):
         from tinyfaces_tpu_torch.utils.instruments import jpeg_bytes
 
         return jpeg_bytes(images, quality)
     return images
+
+
+def wire_bytes_per_px(transfer: str, h: int, w: int) -> float:
+    """Upload bytes a pixel of an h x w canvas on `transfer`."""
+    from tinyfaces_tpu_torch.data import jpegdct
+    from tinyfaces_tpu_torch.evaluation import WIRE_VERSION
+
+    if transfer in WIRE_VERSION:
+        return jpegdct.layout_of(WIRE_VERSION[transfer])(h, w)["__total__"] / (h * w)
+    return 1.5 if transfer == "yuv420" else 3.0
 
 
 def h2d_probe_mibps(dev: torch.device, mib: int = 8) -> float | None:
@@ -241,7 +253,7 @@ def main(argv=None, *, stage_sizes: Sequence[int] = RESNET101_STAGES, hw: tuple 
 
     inputs = bench_inputs(transfer, batch, h, w, quality, content)
     det = build_detector(dev, transfer=transfer, stage_sizes=stage_sizes)
-    wire_bpx = (jpegdct.wire_layout(h, w)["__total__"] if transfer == "jpegdct" else 3 * h * w) / (h * w)
+    wire_bpx = wire_bytes_per_px(transfer, h, w)
     link = h2d_probe_mibps(dev)
     out = run(det, inputs, iters=iters, depth=depth, windows=windows)
     levels = [det._level_canvas(h, w, s) for s in det.ec.scales]
@@ -264,7 +276,7 @@ def main(argv=None, *, stage_sizes: Sequence[int] = RESNET101_STAGES, hw: tuple 
           + (f"{out['peak_gib']:.2f} GiB" if out["peak_gib"] is not None else "not measured (cpu)")
           + f"; {flops / 1e12:.4f} TFLOP/image -> {out['tflops']:.2f} TFLOP/s{share}; last image "
           f"{out['last_image_detections']} detections"
-          + (f"; truncation {jpegdct.truncation_stats()}" if transfer == "jpegdct" else ""),
+          + (f"; truncation {jpegdct.truncation_stats()}" if transfer.startswith("jpegdct") else ""),
           file=sys.stderr, flush=True)
     print(json.dumps(out), file=sys.stderr, flush=True)  # the same, for scripts
     print(json.dumps(result_line(out["value"])), flush=True)

@@ -11,10 +11,10 @@ so host packing stays out of the windows. The result is the median of
 WINDOWS windows of STEPS_PER_WINDOW steps.
 
 Knobs: BENCH_BATCH (12); BENCH_DTYPE=bf16 (bf16 activations, fp32
-parameters and optimizer, TF32 allowed); BENCH_TRANSFER=rgb (the default)
-or jpegdct (the coefficients of a synthetic JPEG, augmented on the card,
-data/dct_train.py; PIL writes the JPEG). The JAX bench's default wire,
-yuv420, is ROADMAP item 15's and exits.
+parameters and optimizer, TF32 allowed); BENCH_TRANSFER=rgb (the default),
+yuv420 (the JAX bench's default: planar YCbCr 4:2:0, converted on the card
+inside the step) or jpegdct (the coefficients of a synthetic JPEG,
+augmented on the card, data/dct_train.py; PIL writes the JPEG).
 
 Prints ONE JSON line last on stdout: {"metric", "value", "unit",
 "vs_baseline"}. On stderr: the card's name and power limit, warm-up
@@ -45,7 +45,7 @@ BASELINE_IMGS_PER_SEC = 18.0  # estimated reference-on-A100 (docstring)
 METRIC = "train_step_images_per_sec_per_chip"
 WINDOWS = 5
 STEPS_PER_WINDOW = 8
-TRANSFERS = ("rgb", "jpegdct")
+TRANSFERS = ("rgb", "yuv420", "jpegdct")
 
 
 def make_synthetic_train_batch(rng, batch: int, cfg, n_boxes: int = 40) -> dict:
@@ -146,6 +146,15 @@ def run(trainer, host_batches: Sequence[dict], *, windows: int, steps_per_window
             "k1_launches": assignment_kernel.launch_count - launches0, "peak_gib": peak_gib(dev)}
 
 
+def yuv420_pack(b: dict) -> dict:
+    """A synthetic batch on the yuv420 wire, as the root bench_train.py packs it."""
+    from tinyfaces_tpu_torch.data.targets import rgb_to_yuv420
+
+    b = dict(b)
+    y, u, v = rgb_to_yuv420(b.pop("image"))
+    return {**b, "image_y": y, "image_u": u, "image_v": v}
+
+
 def result_line(value: float) -> dict:
     return {"metric": METRIC, "value": round(value, 3), "unit": "images/sec/chip",
             "vs_baseline": round(value / BASELINE_IMGS_PER_SEC, 3)}
@@ -182,7 +191,10 @@ def main(argv=None, *, stage_sizes: Sequence[int] = RESNET101_STAGES) -> dict:
     trainer.setup(steps_per_epoch=1000)
 
     rng = np.random.default_rng(0)
-    pack = jpegdct_packer(rng, batch, cfg) if transfer == "jpegdct" else (lambda b: b)
+    if transfer == "jpegdct":
+        pack = jpegdct_packer(rng, batch, cfg)
+    else:
+        pack = yuv420_pack if transfer == "yuv420" else (lambda b: b)
     host_batches = [pinned(pack(make_synthetic_train_batch(rng, batch, cfg)), dev)
                     for _ in range(1 + WINDOWS * STEPS_PER_WINDOW)]
     out = run(trainer, host_batches, windows=WINDOWS, steps_per_window=STEPS_PER_WINDOW)

@@ -81,9 +81,9 @@ class EvalConfig:
     # before cross-scale NMS, and max final detections.
     max_dets_per_scale: int = 1000
     max_total_dets: int = 750
-    # The JAX package folds the 2x level's bilinear upsample into conv1
-    # (ops/stemfold.py); the port resizes and convolves, equal up to
-    # summation order (ROADMAP item 15).
+    # Fold the 2x level's exact-2.0 bilinear upsample into conv1
+    # (ops/stemfold.py): the stem runs at 1x and the 2x canvas is never
+    # made; equal to resize-then-conv up to summation order.
     fold_stem: bool = True
     # Pyramid-level resampling kernel: "linear" (scale_and_translate linear,
     # antialiased) or "pil" (the reference's uint8 PIL bilinear,

@@ -1,11 +1,15 @@
-"""JPEG DCT-domain wire (`jpegdct`, wire version 3) — host half.
+"""JPEG DCT-domain wires (`jpegdct`, wire version 3, and `jpegdct4`, version
+4) — host half.
 
-Port of tinyfaces_tpu/data/jpegdct.py, version 3 (zigzag-dense) only. The
-host entropy-decodes JPEG files with the port's copy of the C++ decoder
-(csrc/jpeg_dct.cpp, no libjpeg) and packs the quantized coefficients into
-one fixed-shape byte buffer per batch; the GPU dequantizes, inverts the
-DCT, upsamples the chroma and normalizes (ops/jpeg.py). The wire carries
-~0.7 B/px against the rgb canvas's 3.
+Port of tinyfaces_tpu/data/jpegdct.py. The host entropy-decodes JPEG files
+with the port's copy of the C++ decoder (csrc/jpeg_dct.cpp, no libjpeg) and
+packs the quantized coefficients into one fixed-shape byte buffer per batch;
+the GPU dequantizes, inverts the DCT, upsamples the chroma and normalizes
+(ops/jpeg.py). Version 3 is
+zigzag-dense (~0.68 B/px against the rgb canvas's 3); version 4 is
+bitmap-sparse (~0.34-0.38 B/px): per block a uint32 bitmap of the nonzero
+zigzag positions and one image-wide int8 stream of the nonzero values, whose
+per-block offsets the device rebuilds from popcount prefix sums.
 
 The decoder takes baseline and extended-sequential Huffman JPEGs with
 4:2:0 sampling or one component. Anything else (progressive or
@@ -16,8 +20,8 @@ installed such an input raises `TranscodeUnavailable`, naming the file's
 sampling; nothing decodes it some other way.
 
 The library is built at first use (utils/cuda_build.load_host_library) and
-its exports are checked when it is loaded; a failed build or load raises.
-Wire version 4 (bitmap-sparse, `jpegdct4`) is not ported: ROADMAP item 15.
+its exports (both versions' packers) are checked when it is loaded; a
+failed build or load, or a library without them, raises.
 """
 
 from __future__ import annotations
@@ -50,7 +54,12 @@ Z_KEEP_C = 24
 ESC_PER_BLOCK = 1 / 16
 PACK_THREADS = 4  # images of one batch packed side by side (the C++ calls drop the GIL)
 
-_V4_NOT_PORTED = "wire version 4 (jpegdct4) is not ported: ROADMAP item 15"
+# Wire v4: the nonzero values within the same zigzag cutoffs ride one int8
+# stream per plane, VALS_PER_BLOCK_* per block of the canvas, image-wide
+# (smooth blocks pay for textured ones). A stream that overflows drops its
+# highest-zigzag values (a spectral low-pass, counted in truncation_stats).
+VALS_PER_BLOCK_Y = 12
+VALS_PER_BLOCK_C = 5
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -68,6 +77,9 @@ _SIGNATURES = {
                                  _P, _P, _P, _P, _P]),
     "tf_jpeg_dct_pack": (_I, [_P, _L, _I, _I, _I, _I, _L, _L, ctypes.c_float,
                               ctypes.c_float, ctypes.c_float] + [_P] * 16),
+    "tf_dct_pack_sparse": (None, [_P, _I, _I, _I, _I, _I, _L, _L, ctypes.c_int16] + [_P] * 6),
+    "tf_jpeg_dct_pack_sparse": (_I, [_P, _L, _I, _I, _I, _I, _L, _L, _L, _L, ctypes.c_float,
+                                     ctypes.c_float, ctypes.c_float] + [_P] * 19),
 }
 
 
@@ -95,8 +107,8 @@ class DCTImage:
 
 def load() -> ctypes.CDLL:
     """Build (if needed) and load csrc/jpeg_dct.cpp, check that it exports
-    the four entry points the bindings call and type them; raises on any
-    failure."""
+    the six entry points the bindings call (v3's and v4's) and type them;
+    raises on any failure."""
     global _lib
     with _lock:
         if _lib is not None:
@@ -371,54 +383,147 @@ def _pack_fused_native(lib, data: bytes, wire: dict, i: int, h8: int,
     return int(hw[0]), int(hw[1])
 
 
+def _pack_plane_sparse(coef_zz, nbx_img, w_grid, z_keep, vcap, out_dc, out_bm, out_vals,
+                       out_esc_idx, out_esc_val) -> None:
+    """NumPy oracle of tf_dct_pack_sparse: bitmap-sparse pack of one plane,
+    its value stream in canvas row-major block order (the order of the
+    image's own blocks too). coef_zz: (nb_img, 64) int16 zigzag; out_bm is
+    (canvas_blocks,) uint32 (bit k-1 = zigzag position k), out_vals (vcap,)
+    int8."""
+    nb_img = coef_zz.shape[0]
+    img_cids = (np.arange(nb_img) // nbx_img) * w_grid + (np.arange(nb_img) % nbx_img)
+
+    out_dc[img_cids] = coef_zz[:, 0]
+    ac = coef_zz[:, 1:z_keep + 1].astype(np.int16)
+    rows, ks = np.nonzero(ac)  # row-major == stream order
+    keep = np.arange(rows.shape[0]) < vcap
+    rows, ks, overflow = rows[keep], ks[keep], int(rows.shape[0] - keep.sum())
+
+    bm = np.zeros(nb_img, np.uint32)
+    np.add.at(bm, rows, np.uint32(1) << ks.astype(np.uint32))
+    out_bm[img_cids] = bm
+    v = ac[rows, ks]
+    clipped = np.clip(v, -127, 127)
+    out_vals[:clipped.shape[0]] = clipped.astype(np.int8)
+
+    esc = np.nonzero(v != clipped)[0]
+    ne = min(esc.shape[0], out_esc_idx.shape[0])
+    out_esc_idx[:ne] = img_cids[rows[esc[:ne]]] * z_keep + ks[esc[:ne]]
+    out_esc_val[:ne] = v[esc[:ne]]
+    _count((overflow + int(np.count_nonzero(coef_zz[:, z_keep + 1:])), esc.shape[0] - ne))
+
+
+def _pack_plane_sparse_native(lib, coef_zz, nbx_img, grid_h, grid_w, z_keep, neutral_dc,
+                              out_dc, out_bm, out_vals, out_esc_idx, out_esc_val) -> None:
+    """C++ pack of one plane (tf_dct_pack_sparse), held to the oracle."""
+    stats = np.zeros(2, np.int32)
+    coef_zz = np.ascontiguousarray(coef_zz, np.int16)
+    lib.tf_dct_pack_sparse(
+        coef_zz.ctypes.data_as(_P), coef_zz.shape[0] // nbx_img, nbx_img, grid_h, grid_w,
+        z_keep, out_esc_idx.shape[0], out_vals.shape[0], ctypes.c_int16(int(neutral_dc)),
+        *[a.ctypes.data_as(_P) for a in (out_dc, out_bm, out_vals, out_esc_idx, out_esc_val,
+                                         stats)])
+    _count(stats)
+
+
+def _pack_fused_native_v4(lib, data: bytes, wire: dict, i: int, h8: int,
+                          w8: int) -> Optional[tuple[int, int, int]]:
+    """Fused C++ entropy decode + bitmap-sparse pack (tf_jpeg_dct_pack_sparse).
+    Returns (h, w, stream_order), or None if the stream needs the transcode
+    and the two-pass path. A colour scan writes the Y value stream in 4:2:0
+    MCU order (stream order 1), a grayscale one in row order (0); the device
+    rebuilds the offsets of either."""
+    buf = np.frombuffer(data, np.uint8)
+    stats = np.zeros(2, np.int32)
+    hw = np.zeros(3, np.int32)
+    yn, cbn, crn = _neutral_ycc()
+    planes = [wire[f"{p}_{f}"][i] for p in "yuv" for f in ("dc", "bm", "vals", "esc_idx", "esc_val")]
+    rc = lib.tf_jpeg_dct_pack_sparse(
+        buf.ctypes.data_as(_P), len(buf), h8, w8, Z_KEEP_Y, Z_KEEP_C,
+        wire["y_esc_idx"].shape[1], wire["u_esc_idx"].shape[1],
+        wire["y_vals"].shape[1], wire["u_vals"].shape[1],
+        float(yn), float(cbn), float(crn),
+        *[a.ctypes.data_as(_P) for a in planes],
+        wire["q_y"][i].ctypes.data_as(_P), wire["q_c"][i].ctypes.data_as(_P),
+        hw.ctypes.data_as(_P), stats.ctypes.data_as(_P))
+    if rc != 0:
+        return None
+    _count(stats)
+    return int(hw[0]), int(hw[1]), 1 if int(hw[2]) == 3 else 0
+
+
+def _layout(fields) -> dict:
+    """(name, n, dtype) -> the layout dict: each field aligned to its width,
+    the total rounded up to a multiple of 4."""
+    layout = {}
+    off = 0
+    for name, n, dtype in fields:
+        item = np.dtype(dtype).itemsize
+        off = (off + item - 1) // item * item  # natural alignment
+        layout[name] = (off, n, np.dtype(dtype))
+        off += n * item
+    layout["__total__"] = (off + 3) // 4 * 4
+    return layout
+
+
+def _grid(h0p: int, w0p: int) -> tuple[int, int, int, int]:
+    """(Y blocks, chroma blocks, Y escape slots, chroma escape slots)."""
+    if h0p % 16 or w0p % 16:
+        raise ValueError(f"canvas {h0p}x{w0p} is not a multiple of 16")
+    nb = (h0p // 8) * (w0p // 8)
+    nbc = (h0p // 16) * (w0p // 16)
+    return nb, nbc, max(16, int(nb * ESC_PER_BLOCK)), max(16, int(nbc * ESC_PER_BLOCK))
+
+
+def _shared_fields(nb: int, nbc: int, ey: int, ec: int) -> tuple[list, list]:
+    """The fields both versions carry, in wire order: the escape indices,
+    then the DC planes, the escape values and the quant tables."""
+    per_plane = lambda name, ns, dt: [(f"{p}_{name}", n, dt) for p, n in zip("yuv", ns)]  # noqa: E731
+    return (per_plane("esc_idx", (ey, ec, ec), np.int32),
+            per_plane("dc", (nb, nbc, nbc), np.int16) + per_plane("esc_val", (ey, ec, ec), np.int16)
+            + [("q_y", 64, np.uint16), ("q_c", 64, np.uint16)])
+
+
 def wire_layout(h0p: int, w0p: int) -> dict:
     """Field -> (byte_offset, n_elements, dtype) layout of one image's row
-    of the wire, plus "__total__" -> its bytes (a multiple of 4).
+    of the version-3 wire, plus "__total__" -> its bytes (a multiple of 4).
 
     Every field — DC planes, zigzag-dense AC tensors, escape lists, quant
     tables and the [h, w] of the image — rides in one byte buffer per
     batch, so a batch is one upload. Each offset is aligned to its field's
     width, so the device views every field out of the bytes in place
     (ops/jpeg.wire_fields)."""
-    if h0p % 16 or w0p % 16:
-        raise ValueError(f"canvas {h0p}x{w0p} is not a multiple of 16")
-    nb = (h0p // 8) * (w0p // 8)
-    nbc = (h0p // 16) * (w0p // 16)
-    ey = max(16, int(nb * ESC_PER_BLOCK))
-    ec = max(16, int(nbc * ESC_PER_BLOCK))
+    nb, nbc, ey, ec = _grid(h0p, w0p)
+    esc_idx, shared = _shared_fields(nb, nbc, ey, ec)
+    return _layout([("h0w0", 2, np.int32)] + esc_idx + shared + [
+        ("y_ac", nb * Z_KEEP_Y, np.int8), ("u_ac", nbc * Z_KEEP_C, np.int8),
+        ("v_ac", nbc * Z_KEEP_C, np.int8)])
 
-    layout = {}
-    off = 0
 
-    def add(name, n, dtype):
-        nonlocal off
-        item = np.dtype(dtype).itemsize
-        off = (off + item - 1) // item * item  # natural alignment
-        layout[name] = (off, n, np.dtype(dtype))
-        off += n * item
+def wire_layout_v4(h0p: int, w0p: int) -> dict:
+    """The version-4 (bitmap-sparse) layout, as wire_layout. h0w0 is [h, w,
+    Y stream order, 0]: order 1 is 4:2:0 MCU order (the fused colour
+    decode), 0 canvas row-major (the two-pass pack, grayscale). Stream
+    offsets are not on the wire: the device rebuilds them from popcounts."""
+    nb, nbc, ey, ec = _grid(h0p, w0p)
+    esc_idx, shared = _shared_fields(nb, nbc, ey, ec)
+    return _layout([("h0w0", 4, np.int32), ("y_bm", nb, np.uint32), ("u_bm", nbc, np.uint32),
+                    ("v_bm", nbc, np.uint32)] + esc_idx + shared + [
+        ("y_vals", nb * VALS_PER_BLOCK_Y, np.int8), ("u_vals", nbc * VALS_PER_BLOCK_C, np.int8),
+        ("v_vals", nbc * VALS_PER_BLOCK_C, np.int8)])
 
-    add("h0w0", 2, np.int32)
-    add("y_esc_idx", ey, np.int32)
-    add("u_esc_idx", ec, np.int32)
-    add("v_esc_idx", ec, np.int32)
-    add("y_dc", nb, np.int16)
-    add("u_dc", nbc, np.int16)
-    add("v_dc", nbc, np.int16)
-    add("y_esc_val", ey, np.int16)
-    add("u_esc_val", ec, np.int16)
-    add("v_esc_val", ec, np.int16)
-    add("q_y", 64, np.uint16)
-    add("q_c", 64, np.uint16)
-    add("y_ac", nb * Z_KEEP_Y, np.int8)
-    add("u_ac", nbc * Z_KEEP_C, np.int8)
-    add("v_ac", nbc * Z_KEEP_C, np.int8)
-    layout["__total__"] = (off + 3) // 4 * 4
-    return layout
+
+def layout_of(version: int):
+    """wire_layout for version 3, wire_layout_v4 for 4."""
+    if version not in (3, 4):
+        raise ValueError(f"unknown wire version {version}")
+    return wire_layout_v4 if version == 4 else wire_layout
 
 
 def pack_dct_batch(dcts: Sequence, h0p: int, w0p: int, use_native: bool = True,
                    wire_version: int = 3, out: Optional[np.ndarray] = None) -> dict:
-    """Pack entropy-decoded images into the fixed-shape device wire.
+    """Pack entropy-decoded images into the fixed-shape device wire of
+    `wire_version` (3 zigzag-dense, 4 bitmap-sparse).
 
     Entries may be DCTImage, raw JPEG bytes or uint8 arrays. Raw bytes of a
     baseline 4:2:0 or grayscale JPEG take the fused C++ decode + pack;
@@ -429,13 +534,10 @@ def pack_dct_batch(dcts: Sequence, h0p: int, w0p: int, use_native: bool = True,
     `use_native=False` packs with the NumPy oracle (raw bytes still parse
     in C++). `out`: a (B, total) uint8 C-contiguous array to pack into
     (e.g. pinned memory), else a new one."""
-    if wire_version != 3:
-        raise ValueError(_V4_NOT_PORTED if wire_version == 4
-                         else f"unknown wire version {wire_version}")
+    v4 = wire_version == 4
+    layout = layout_of(wire_version)(h0p, w0p)
     b = len(dcts)
     h8, w8, h16, w16 = h0p // 8, w0p // 8, h0p // 16, w0p // 16
-
-    layout = wire_layout(h0p, w0p)
     total = layout.pop("__total__")
     data_end = max(off + n * dt.itemsize for off, n, dt in layout.values())
     if out is None:
@@ -454,22 +556,29 @@ def pack_dct_batch(dcts: Sequence, h0p: int, w0p: int, use_native: bool = True,
     lib = load()
 
     def pack_one(coef, nbx_img, grid_h, grid_w, z_keep, neutral_dc, p, i):
-        ac = wire[f"{p}_ac"][i].reshape(grid_h * grid_w, z_keep)
-        if use_native:
-            _pack_plane_dense_native(lib, coef, nbx_img, grid_h, grid_w, z_keep, neutral_dc,
-                                     wire[f"{p}_dc"][i], ac, wire[f"{p}_esc_idx"][i],
-                                     wire[f"{p}_esc_val"][i])
+        fields = [wire[f"{p}_dc"][i]]
+        if v4:
+            fields += [wire[f"{p}_bm"][i], wire[f"{p}_vals"][i]]
         else:
-            wire[f"{p}_dc"][i] = neutral_dc
-            _pack_plane_dense(coef, nbx_img, grid_w, z_keep, wire[f"{p}_dc"][i], ac,
-                              wire[f"{p}_esc_idx"][i], wire[f"{p}_esc_val"][i])
+            fields.append(wire[f"{p}_ac"][i].reshape(grid_h * grid_w, z_keep))
+        fields += [wire[f"{p}_esc_idx"][i], wire[f"{p}_esc_val"][i]]
+        if use_native:
+            native = _pack_plane_sparse_native if v4 else _pack_plane_dense_native
+            native(lib, coef, nbx_img, grid_h, grid_w, z_keep, neutral_dc, *fields)
+        else:
+            fields[0][:] = neutral_dc
+            if v4:
+                _pack_plane_sparse(coef, nbx_img, grid_w, z_keep, fields[2].shape[0], *fields)
+            else:
+                _pack_plane_dense(coef, nbx_img, grid_w, z_keep, *fields)
 
     def pack_image(i: int) -> None:
         d = dcts[i]
         if use_native and is_bytes(d):
-            hw = _pack_fused_native(lib, bytes(d), wire, i, h8, w8)
+            fused = _pack_fused_native_v4 if v4 else _pack_fused_native
+            hw = fused(lib, bytes(d), wire, i, h8, w8)
             if hw is not None:
-                wire["h0w0"][i] = hw
+                wire["h0w0"][i] = (*hw, 0) if v4 else hw
                 return
         if not isinstance(d, DCTImage):
             d = as_dct_image(d)  # bytes that need the transcode, uint8 arrays
@@ -477,7 +586,8 @@ def pack_dct_batch(dcts: Sequence, h0p: int, w0p: int, use_native: bool = True,
         out[i, :data_end].fill(0)
         for p in "yuv":
             wire[f"{p}_esc_idx"][i].fill(-1)
-        wire["h0w0"][i] = (d.h, d.w)
+        # v4's two-pass path packs Y in canvas row-major order (stream order 0)
+        wire["h0w0"][i] = (d.h, d.w, 0, 0) if v4 else (d.h, d.w)
         # quant tables ship in zigzag order, as the AC tensors and the basis
         wire["q_y"][i] = d.qy
         wire["q_c"][i] = d.qc if d.qc is not None else d.qy

@@ -6,7 +6,10 @@ image (H, W, 3) uint8, gt_boxes (G, 4) float32, gt_valid (G,) bool,
 paste_box (4,) float32, flip bool. With `pack="jpegdct"` the items come
 from `dataset.getitem_train_dct` instead: dct_wire (713,992,) uint8 and the
 device augmentation's aug_scale and aug_off in place of the image
-(data/dct_train.py).
+(data/dct_train.py). With `pack="yuv420"` the worker threads convert each
+augmented canvas to planar YCbCr 4:2:0 (data/targets.rgb_to_yuv420, 1.5
+B/px): image_y (H, W), image_u and image_v (H/2, W/2) uint8 in place of
+the image; build_targets converts them back on the device.
 
 Worker threads load samples while the device runs the previous step;
 collated batches go through a bounded queue. The shuffle is a pure function
@@ -25,8 +28,7 @@ loader: `batch_size` stays the global batch, every rank computes the same
 (seed, epoch) order and loads only its rows [rank*per, (rank+1)*per) of
 each global batch (per = batch_size // world). The augmentation draws are
 keyed by the sample index, so a rank's rows are augmented exactly as one
-process augments them. `pack="yuv420"` (ROADMAP item 15) has no
-counterpart here.
+process augments them.
 """
 
 from __future__ import annotations
@@ -42,6 +44,18 @@ import torch
 
 _STOP = object()
 _PREFETCH = 4  # collated batches waiting ahead of the consumer
+PACKS = ("rgb", "yuv420", "jpegdct")
+
+
+def _pack_yuv(item: dict) -> dict:
+    """A train sample with its RGB canvas replaced by planar YCbCr 4:2:0
+    (1.5 B/px); build_targets converts it back on the device."""
+    from tinyfaces_tpu_torch.data.targets import rgb_to_yuv420
+
+    item = dict(item)
+    y, u, v = rgb_to_yuv420(item.pop("image")[None])
+    item["image_y"], item["image_u"], item["image_v"] = y[0], u[0], v[0]
+    return item
 
 
 def _collate(items: list[dict], pin: bool) -> dict:
@@ -62,10 +76,8 @@ class PrefetchLoader:
                  rank: int = 0, world: int = 1):
         if world > 1 and batch_size % world:
             raise ValueError(f"batch_size {batch_size} not divisible by world {world}")
-        if pack == "yuv420":
-            raise ValueError("pack='yuv420' is not ported: ROADMAP item 15")
-        if pack not in ("rgb", "jpegdct"):
-            raise ValueError(f"unknown pack mode {pack!r}")
+        if pack not in PACKS:
+            raise ValueError(f"unknown pack mode {pack!r}; use one of {PACKS}")
         self.pack = pack
         self.dataset = dataset
         self.batch_size = batch_size
@@ -144,6 +156,9 @@ class PrefetchLoader:
                     pass
 
     def _device_batches(self, load: Callable[[int], dict]) -> Iterator[dict]:
+        if self.pack == "yuv420":
+            pixels = load
+            load = lambda i: _pack_yuv(pixels(i))  # noqa: E731
         for host in self._host_batches(self._begin_epoch(), load):
             yield {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
 

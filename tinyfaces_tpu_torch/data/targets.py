@@ -1,14 +1,20 @@
 """Device-side batch preparation: normalization + GT target heatmaps.
 
-Port of tinyfaces_tpu/data/targets.py on the `rgb` and `jpegdct` wires. The
-batch's tensors already sit on the training device; the jpegdct wire's
-pixels are reconstructed and augmented there (`device_augment_dct`), and the
-assignment reductions run there (the CUDA kernel on a GPU, the plain twin
-on the CPU).
+Port of tinyfaces_tpu/data/targets.py on the `rgb`, `yuv420` and `jpegdct`
+wires. The batch's tensors already sit on the training device; the yuv420
+wire's planes are converted there (`yuv420_to_normalized`), the jpegdct
+wire's pixels are reconstructed and augmented there (`device_augment_dct`),
+and the assignment reductions run there (the CUDA kernel on a GPU, the plain
+twin on the CPU).
+
+`rgb_to_yuv420` is the yuv420 wire's host half, in NumPy: Pillow's
+fixed-point RGB -> YCbCr converter (the JAX package calls PIL for it), byte
+for byte, so no PIL is needed.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from tinyfaces_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD, DetectorConfig
@@ -23,6 +29,74 @@ def normalize_images(images_u8: torch.Tensor, dtype=torch.float32) -> torch.Tens
     mean = torch.tensor(IMAGENET_MEAN, dtype=dtype).to(images_u8.device, non_blocking=True)
     std = torch.tensor(IMAGENET_STD, dtype=dtype).to(images_u8.device, non_blocking=True)
     x = images_u8.to(dtype) / 255.0
+    return (x - mean) / std
+
+
+# Pillow's RGB -> YCbCr (libImaging/ConvertYCbCr.c): per output channel three
+# 256-entry tables, entry i = (int)(coefficient * 64 * i + 0.5) in C (a
+# truncation towards zero), summed and shifted right by 6 (a floor); Cb and
+# Cr add 128. The coefficients are its five-digit JFIF ones.
+_YCC_COEFFS = ((0.299, 0.587, 0.114),
+               (-0.16874, -0.33126, 0.5),
+               (0.5, -0.41869, -0.08131))
+_YCC_TABLES = np.trunc(np.asarray(_YCC_COEFFS)[:, :, None] * 64.0 * np.arange(256)
+                       + 0.5).astype(np.int16)  # (out channel, in channel, 256)
+
+
+def _pil_ycbcr(rgb: np.ndarray) -> list[np.ndarray]:
+    """(H, W, 3) uint8 RGB -> [Y, Cb, Cr], each (H, W) int16 holding
+    Pillow's uint8 values."""
+    out = []
+    for c, tables in enumerate(_YCC_TABLES):
+        acc = np.take(tables[0], rgb[..., 0])
+        acc += np.take(tables[1], rgb[..., 1])
+        acc += np.take(tables[2], rgb[..., 2])
+        acc >>= 6
+        if c:
+            acc += 128
+        out.append(acc)
+    return out
+
+
+def rgb_to_yuv420(images_u8: np.ndarray, out: tuple | None = None) -> tuple:
+    """Host pack of the yuv420 wire: (B, H, W, 3) uint8 RGB -> planar YCbCr
+    4:2:0, (B, H, W) Y and (B, H/2, W/2) Cb, Cr, all uint8 (H, W even).
+    Y, Cb and Cr are Pillow's convert("YCbCr") exactly; each chroma sample
+    is its 2x2 block's mean plus 0.5, truncated, as the JAX package takes
+    it in float64 (an integer (sum + 2) >> 2, which is the same byte).
+    `out`: the three arrays to write into, else new ones."""
+    b, h, w, _ = images_u8.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"yuv420 needs an even canvas, got {h}x{w}")
+    if out is None:
+        out = (np.empty((b, h, w), np.uint8), np.empty((b, h // 2, w // 2), np.uint8),
+               np.empty((b, h // 2, w // 2), np.uint8))
+    y, u, v = out
+    for i in range(b):
+        yy, cb, cr = _pil_ycbcr(images_u8[i])
+        y[i] = yy
+        for plane, dst in ((cb, u), (cr, v)):
+            quad = plane.reshape(h // 2, 2, w // 2, 2).sum((1, 3), dtype=np.int32)
+            dst[i] = (quad + 2) >> 2
+    return out
+
+
+def yuv420_to_normalized(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                         dtype=torch.float32) -> torch.Tensor:
+    """Device unpack of the yuv420 wire: uint8 (B, H, W) Y and (B, H/2, W/2)
+    Cb, Cr -> ImageNet-normalized RGB (B, H, W, 3) in `dtype`, computed in
+    `dtype` throughout as the JAX package does (in bfloat16 the colour
+    conversion itself runs in bfloat16): inverse full-range BT.601, nearest
+    chroma upsample, clip to [0, 1], normalize."""
+    yf = y.to(dtype)
+    uf = u.to(dtype).repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1) - 128.0
+    vf = v.to(dtype).repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1) - 128.0
+    r = yf + 1.402 * vf
+    g = yf - 0.344136 * uf - 0.714136 * vf
+    b = yf + 1.772 * uf
+    x = (torch.stack([r, g, b], dim=-1) / 255.0).clamp_(0.0, 1.0)
+    mean = torch.tensor(IMAGENET_MEAN, dtype=dtype).to(y.device, non_blocking=True)
+    std = torch.tensor(IMAGENET_STD, dtype=dtype).to(y.device, non_blocking=True)
     return (x - mean) / std
 
 
@@ -144,6 +218,9 @@ def build_targets(
     if "dct_wire" in batch:
         # jpegdct train wire: the source region's coefficients, augmented here
         images = device_augment_dct(batch, cfg)
+    elif "image_y" in batch:
+        # yuv420 wire (the loaders' pack="yuv420"): the colour conversion runs here
+        images = yuv420_to_normalized(batch["image_y"], batch["image_u"], batch["image_v"])
     else:
         images = normalize_images(batch["image"])
     templates = templates.to(images.device, torch.float32)

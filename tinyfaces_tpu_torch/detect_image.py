@@ -6,10 +6,10 @@
 
 Loads the templates and the checkpoint, detects at a single scale
 (scales=(0,)), draws the boxes, and saves the image to `--output` or shows
-it. With `--transfer jpegdct` a .jpg file's bytes go to the detector as
-they are (the GPU decodes the coefficients); `yuv420` and `jpegdct4` are
-not ported (ROADMAP item 15). `--device` (default cuda) is the port's own
-flag. PIL reads the image to draw on.
+it. With `--transfer jpegdct` or `jpegdct4` a .jpg file's bytes go to the
+detector as they are (the GPU decodes the coefficients); `yuv420` ships the
+decoded pixels as planar YCbCr 4:2:0. `--device` (default cuda) is the
+port's own flag. PIL reads the image to draw on.
 """
 
 from __future__ import annotations
@@ -34,19 +34,19 @@ def arguments(argv=None):
                         help="backbone (reference model.py:13 base_model knob)")
     parser.add_argument("--output", default="", help="save annotated image here instead of .show()")
     parser.add_argument("--transfer", default="rgb", choices=("rgb", "yuv420", "jpegdct", "jpegdct4"),
-                        help="wire format; jpegdct feeds the JPEG file's own DCT "
-                             "coefficients to the device (yuv420, jpegdct4: ROADMAP item 15)")
+                        help="wire format; jpegdct/jpegdct4 feed the JPEG file's own DCT "
+                             "coefficients to the device, yuv420 planar YCbCr 4:2:0 pixels")
     parser.add_argument("--device", default="cuda", help="torch device (cuda, cuda:N or cpu)")
     return parser.parse_args(argv)
 
 
 def run(model, image, templates, prob_thresh, nms_thresh, *, device, transfer="rgb",
         jpeg_bytes=None):
-    """(N, 5) detections of one image at scale 1; on the jpegdct wire from
+    """(N, 5) detections of one image at scale 1; on the JPEG wires from
     `jpeg_bytes` when given."""
     detector = PyramidDetector(model, templates, cfg=DetectorConfig(), ec=EvalConfig(),
                                device=device, transfer=transfer)
-    if transfer == "jpegdct" and jpeg_bytes is not None:
+    if transfer.startswith("jpegdct") and jpeg_bytes is not None:
         return detector.detect_batch([jpeg_bytes], prob_thresh, nms_thresh, scales=(0,))[0]
     return detector.detect(np.asarray(image), prob_thresh, nms_thresh, scales=(0,))
 
@@ -62,7 +62,7 @@ def main(argv=None):
 
     image = Image.open(args.image_path).convert("RGB")
     jpeg_bytes = None
-    if args.transfer == "jpegdct" and args.image_path.lower().endswith((".jpg", ".jpeg")):
+    if args.transfer.startswith("jpegdct") and args.image_path.lower().endswith((".jpg", ".jpeg")):
         jpeg_bytes = Path(args.image_path).read_bytes()
     dets = run(model, image, templates, args.prob_thresh, args.nms_thresh, device=args.device,
                transfer=args.transfer, jpeg_bytes=jpeg_bytes)

@@ -9,8 +9,9 @@ WIDER-format result files (<results_dir>/<event>/<img>.txt), to be graded
 by `python -m tinyfaces_tpu_torch.wider_eval`. `--transfer` defaults to
 `jpegdct`, as in the JAX CLI: worker threads read each JPEG's bytes, the
 pack stage entropy-decodes them in C++ and the device reconstructs the
-pixels; `rgb` decodes the images with PIL on the host and uploads the uint8
-canvas. `--resample pil` resizes every level with the reference's uint8 PIL
+pixels; `jpegdct4` does the same on the bitmap-sparse wire v4; `rgb`
+decodes the images with PIL on the host and uploads the uint8 canvas, and
+`yuv420` uploads it as planar YCbCr 4:2:0. `--resample pil` resizes every level with the reference's uint8 PIL
 bilinear on the device (ops/pilresize.py) and needs `--transfer rgb`.
 
 Across processes and cards, as in the JAX CLI:
@@ -23,9 +24,9 @@ Across processes and cards, as in the JAX CLI:
     one model replica each: every card of `--device cuda` in one process,
     the rank's own card (r % cards) under N > 1. `--eval-batch` must
     divide over them.
-`yuv420`, `jpegdct4` and `--shard spatial|auto` exit naming ROADMAP item
-15. `--device` (default cuda) is the port's own flag; nothing falls back to
-the CPU when there is no GPU.
+`--shard spatial|auto` exits naming ROADMAP item 15. `--device` (default
+cuda) is the port's own flag; nothing falls back to the CPU when there is
+no GPU.
 """
 
 from __future__ import annotations
@@ -105,9 +106,9 @@ def arguments(argv=None):
                         choices=("rgb", "yuv420", "jpegdct", "jpegdct4"),
                         help="fused-path wire format. jpegdct (the default) ships the JPEG "
                              "files' entropy-decoded DCT coefficients (~0.7 B/px) and decodes "
-                             "on the GPU; rgb decodes with PIL on the host and uploads the "
-                             "uint8 canvas; yuv420 and jpegdct4 are not ported (ROADMAP "
-                             "item 15)")
+                             "on the GPU; jpegdct4 ships the bitmap-sparse wire v4 (~0.35 "
+                             "B/px); rgb decodes with PIL on the host and uploads the uint8 "
+                             "canvas; yuv420 uploads it as planar YCbCr 4:2:0 (1.5 B/px)")
     parser.add_argument("--data-parallel", action="store_true",
                         help="split each batch over this process's cards, one replica each")
     parser.add_argument("--coordinator-address", default="",
@@ -129,8 +130,8 @@ def run(detector, dataset, prob_thresh, nms_thresh, split, results_dir=None,
         debug=False, eval_batch=32, host_resize=False, workers=8,
         inflight=3, rank=0, world=1):
     """Evaluate the split with a three-stage pipeline: worker threads decode
-    images (the reference's DataLoader(num_workers=8)) or, on the jpegdct
-    wire, only read the JPEG bytes (`dataset.get_dct`), the main thread
+    images (the reference's DataLoader(num_workers=8)) or, on the JPEG
+    wires, only read the JPEG bytes (`dataset.get_dct`), the main thread
     groups images sharing a padded bucket into fixed-size device batches,
     and up to `inflight` batches are in flight (detect_batch_async) so host
     decode, packing and upload overlap device compute. `host_resize` takes
@@ -152,10 +153,10 @@ def run(detector, dataset, prob_thresh, nms_thresh, split, results_dir=None,
           "t_first_settled": 0.0, "done_at_first": 0}
     t_sweep = time.perf_counter()
 
-    dct = detector.transfer == "jpegdct"
+    dct = detector.transfer.startswith("jpegdct")
     if dct and host_resize:
         raise ValueError("--host-resize needs decoded pixels; use --transfer rgb with it")
-    # jpegdct: the workers entropy-decode only files the fused C++ pack
+    # jpegdct/jpegdct4: the workers entropy-decode only files the fused C++ pack
     # cannot take; pixels never exist on the host
     fetch = dataset.get_dct if dct else dataset.__getitem__
 
@@ -278,8 +279,6 @@ def run(detector, dataset, prob_thresh, nms_thresh, split, results_dir=None,
 
 def _refusal(args) -> str | None:
     """Why these flags cannot run, or None."""
-    if args.transfer not in ("rgb", "jpegdct"):
-        return f"--transfer {args.transfer} is not ported (ROADMAP item 15); use jpegdct or rgb"
     if args.resample == "pil" and args.transfer != "rgb":
         return ("resample='pil' reproduces the reference's uint8-domain resampling and needs "
                 "exact pixels on device — use transfer='rgb' (lossy wires defeat the parity point)")

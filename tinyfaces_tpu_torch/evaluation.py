@@ -1,6 +1,7 @@
 """Evaluation runtime: checkpoint loading, image-pyramid inference, WIDER writer.
 
-Port of tinyfaces_tpu/evaluation.py on the `rgb` and `jpegdct` wires:
+Port of tinyfaces_tpu/evaluation.py on all its wires (`rgb`, `yuv420`,
+`jpegdct`, `jpegdct4`):
   * `get_model` / `load_weights`: build the detector and load the port
     trainer's own checkpoint, the JAX package's .npz export, or a reference
     PyTorch .pth (utils/convert.from_reference_pth);
@@ -8,10 +9,12 @@ Port of tinyfaces_tpu/evaluation.py on the `rgb` and `jpegdct` wires:
     the mean-padded canvas to every level on the device, one forward per
     level, top-K decode, one cross-scale NMS per image — returning a packed
     (B, K, 6) tensor whose copy to the host runs behind a CUDA event. On
-    the `jpegdct` wire it takes JPEG bytes (or DCTImage, or uint8 arrays
-    through PIL's transcode): the host entropy-decodes and packs them
-    (data/jpegdct.py) and the device reconstructs the normalized canvas
-    (ops/jpeg.py);
+    `yuv420` the host converts the uint8 canvas to planar YCbCr 4:2:0 (1.5
+    B/px, data/targets.rgb_to_yuv420) and the device converts it back. On
+    `jpegdct` (v3) and `jpegdct4` (v4) it takes JPEG bytes (or DCTImage, or
+    uint8 arrays through PIL's transcode): the host entropy-decodes and
+    packs them (data/jpegdct.py) and the device reconstructs the normalized
+    canvas (ops/jpeg.py);
   * `write_results`: the WIDER per-image result tree
     <results_dir>/<event>/<img>.txt, byte for byte as the JAX writer.
 
@@ -26,17 +29,21 @@ package's batch-sharded mesh): one model replica per card, each fused batch
 split into equal contiguous pieces, every piece dispatched before any is
 waited for, and the results gathered in order.
 
-Not ported (each raises, naming ROADMAP item 15): the `yuv420`/`jpegdct4`
-wires and spatial sharding (`shard="spatial"|"auto"`). The 2x level
-resizes and then convolves whatever `EvalConfig.fold_stem` says: the
-folded stem (ops/stemfold.py) equals that up to summation order
-(config.py:85-89) and is in ROADMAP item 15.
+`EvalConfig.fold_stem` (the default, as in the JAX package) folds the 2x
+level's exact-2.0 upsample into conv1 (ops/stemfold.py): the stem runs at
+1x on the unpacked canvas and the (B, 3, 2H, 2W) canvas is never made; the
+trace's "resize 1" phase then holds the folded stem. `fold_stem=False`
+resizes and then convolves, as does `resample="pil"`.
+
+Not ported (raises, naming ROADMAP item 15): spatial sharding
+(`shard="spatial"|"auto"`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple, Optional, Sequence
 
@@ -45,23 +52,22 @@ import torch
 
 from tinyfaces_tpu_torch.config import DetectorConfig, EvalConfig
 from tinyfaces_tpu_torch.data import jpegdct
-from tinyfaces_tpu_torch.data.targets import normalize_images
+from tinyfaces_tpu_torch.data.targets import normalize_images, rgb_to_yuv420, yuv420_to_normalized
 from tinyfaces_tpu_torch.data.wider_face import MEAN_PIXEL
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
 from tinyfaces_tpu_torch.models.resnet import ARCH_STAGES
 from tinyfaces_tpu_torch.ops.decode import decode_scores, valid_template_mask
-from tinyfaces_tpu_torch.ops.jpeg import dct_batch_to_normalized
+from tinyfaces_tpu_torch.ops.jpeg import dct4_batch_to_normalized, dct_batch_to_normalized
 from tinyfaces_tpu_torch.ops.nms import batched_nms_padded
 from tinyfaces_tpu_torch.ops.pilresize import max_taps, resize_pil_batch
 from tinyfaces_tpu_torch.ops.resize import resize_batch
+from tinyfaces_tpu_torch.ops.stemfold import folded_stem_2x
 from tinyfaces_tpu_torch.parallel.mesh import check_shard, split_batch
 from tinyfaces_tpu_torch.utils.convert import from_npz, from_reference_pth
 
-TRANSFERS = ("rgb", "jpegdct")
-_UNPORTED_TRANSFERS = {
-    "yuv420": "ROADMAP item 15 (decide or drop)",
-    "jpegdct4": "ROADMAP item 15 (decide or drop)",
-}
+TRANSFERS = ("rgb", "yuv420", "jpegdct", "jpegdct4")
+WIRE_VERSION = {"jpegdct": 3, "jpegdct4": 4}  # the JPEG wires' pack_dct_batch versions
+YUV_THREADS = 4  # images of a batch converted side by side (NumPy's take drops the GIL)
 
 
 def pyramid_level_sizes(h0: torch.Tensor, w0: torch.Tensor, sexp: int):
@@ -144,10 +150,19 @@ def _round_up(x: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def yuv420_wire(host: torch.Tensor, h: int, w: int) -> tuple:
+    """The (Y, Cb, Cr) views, (B, h, w) and twice (B, h/2, w/2), of a
+    (B, 1.5 h w) uint8 yuv420 wire row by row: Y, then Cb, then Cr."""
+    b, n, q = host.shape[0], h * w, (h // 2) * (w // 2)
+    return (host[:, :n].view(b, h, w), host[:, n:n + q].view(b, h // 2, w // 2),
+            host[:, n + q:].view(b, h // 2, w // 2))
+
+
 class PackedBatch(NamedTuple):
     """Upload-ready host half of one detector batch (pack_inputs): `host`
-    is the uint8 (B, h0p, w0p, 3) canvas on the rgb wire, the (B, total)
-    uint8 wire on jpegdct, in pinned memory when the detector's device is a
+    is the uint8 (B, h0p, w0p, 3) canvas on the rgb wire, the (B, 1.5 h0p
+    w0p) planes on yuv420 (yuv420_wire), the (B, total) uint8 wire on
+    jpegdct and jpegdct4, in pinned memory when the detector's device is a
     GPU; hs/ws the per-image true sizes; h0p/w0p the padded canvas."""
 
     host: torch.Tensor
@@ -184,7 +199,7 @@ class PyramidDetector:
 
     `trace`: set to a list to record, on a GPU, one (phase, CUDA event) pair
     after each phase of every batch — "upload", "unpack" (the normalized
-    canvas from the uint8 pixels or the jpegdct wire), then "resize s",
+    canvas from the wire), then "resize s" (the folded stem at the 2x level),
     "forward s" and "decode s" per level s, "nms" and "d2h"; the time of a
     phase is the elapsed time from the previous event (with several
     devices, of the first device's piece). None (the default) records
@@ -201,11 +216,8 @@ class PyramidDetector:
         transfer: str = "rgb",
         shard: str = "batch",
     ):
-        if transfer in _UNPORTED_TRANSFERS:
-            raise ValueError(f"transfer={transfer!r} is not ported yet: "
-                             f"{_UNPORTED_TRANSFERS[transfer]}; use one of {TRANSFERS}")
         if transfer not in TRANSFERS:
-            raise ValueError(f"unknown transfer mode {transfer!r}")
+            raise ValueError(f"unknown transfer mode {transfer!r}; use one of {TRANSFERS}")
         check_shard(shard)
         devices = [torch.device(d) for d in
                    ([device] if isinstance(device, (str, torch.device)) else device)]
@@ -266,7 +278,7 @@ class PyramidDetector:
         the fused pyramid; `host_resize=True` resizes each level with PIL on
         the host (the reference's resampling, one forward per level; JPEG
         bytes are decoded with PIL first). `image`: (H, W, 3) uint8, or on
-        the jpegdct wire also JPEG bytes or a DCTImage."""
+        the JPEG wires also JPEG bytes or a DCTImage."""
         if not host_resize:
             return self.detect_batch([image], prob_thresh, nms_thresh, scales)[0]
         return self._detect_host_resize(image, prob_thresh, nms_thresh, scales)
@@ -286,9 +298,9 @@ class PyramidDetector:
 
     def pack_inputs(self, images: Sequence) -> PackedBatch:
         """Host half of detect_batch_async, without touching the device: the
-        bucketed uint8 canvas with mean-pixel margins, or on the jpegdct
-        wire the packed coefficients of the bucketed canvas."""
-        if self.transfer == "jpegdct":
+        bucketed uint8 canvas with mean-pixel margins, its yuv420 planes, or
+        on the JPEG wires the packed coefficients of the bucketed canvas."""
+        if self.transfer in WIRE_VERSION:
             return self._pack_jpegdct(images)
         hs = [im.shape[0] for im in images]
         ws = [im.shape[1] for im in images]
@@ -296,8 +308,9 @@ class PyramidDetector:
 
         # Fill only the padding margins; a fresh buffer per call keeps
         # copies still in flight safe.
+        yuv = self.transfer == "yuv420"
         host = torch.empty((len(images), h0p, w0p, 3), dtype=torch.uint8,
-                           pin_memory=self._pinned())
+                           pin_memory=self._pinned() and not yuv)
         batch = host.numpy()
         for i, im in enumerate(images):
             h, w = im.shape[:2]
@@ -306,7 +319,25 @@ class PyramidDetector:
                 batch[i, :h, w:] = MEAN_PIXEL
             if h < h0p:
                 batch[i, h:] = MEAN_PIXEL
+        if yuv:
+            host = self._pack_yuv420(batch)
         return PackedBatch(host, np.asarray(hs, np.int32), np.asarray(ws, np.int32), h0p, w0p)
+
+    def _pack_yuv420(self, batch: np.ndarray) -> torch.Tensor:
+        """The mean-padded canvas (B, h0p, w0p, 3) as one yuv420 wire."""
+        b, h, w, _ = batch.shape
+        host = torch.empty((b, h * w * 3 // 2), dtype=torch.uint8, pin_memory=self._pinned())
+        planes = [p.numpy() for p in yuv420_wire(host, h, w)]
+
+        def one(i):
+            rgb_to_yuv420(batch[i:i + 1], tuple(p[i:i + 1] for p in planes))
+
+        if b > 1:
+            with ThreadPoolExecutor(min(YUV_THREADS, b)) as pool:  # disjoint rows
+                list(pool.map(one, range(b)))
+        else:
+            one(0)
+        return host
 
     def _pack_jpegdct(self, images: Sequence) -> PackedBatch:
         # Raw JPEG bytes stay raw: a header-only probe sizes the canvas and
@@ -314,9 +345,10 @@ class PyramidDetector:
         items = [jpegdct.as_wire_input(im) for im in images]
         hs, ws = zip(*(jpegdct.input_dims(im) for im in items))
         h0p, w0p = _round_up(max(hs)), _round_up(max(ws))
-        total = jpegdct.wire_layout(h0p, w0p)["__total__"]
+        version = WIRE_VERSION[self.transfer]
+        total = jpegdct.layout_of(version)(h0p, w0p)["__total__"]
         host = torch.empty((len(items), total), dtype=torch.uint8, pin_memory=self._pinned())
-        jpegdct.pack_dct_batch(items, h0p, w0p, out=host.numpy())
+        jpegdct.pack_dct_batch(items, h0p, w0p, wire_version=version, out=host.numpy())
         return PackedBatch(host, np.asarray(hs, np.int32), np.asarray(ws, np.int32), h0p, w0p)
 
     def _level_sizes(self, hs: np.ndarray, ws: np.ndarray, scales: tuple) -> np.ndarray:
@@ -414,19 +446,24 @@ class PyramidDetector:
     def _fused_pyramid(self, replica: Replica, images, size_hw, level_hw, *, scales: tuple,
                        h0p: int, w0p: int, prob_thresh: float, nms_thresh: float,
                        mark, pil_taps=None) -> torch.Tensor:
-        """Whole pyramid for one batch on `replica`: the normalized canvas from either
-        wire, resize of every level, forward, decode, then one cross-scale
-        NMS per image. With resample="pil" the canvas stays in pixels: each
-        level is resized on the uint8 grid, then normalized. `mark(phase)`
-        records the trace's events."""
+        """Whole pyramid for one batch on `replica`: the normalized canvas from any
+        wire, resize of every level (the 2x level's folded into conv1 under
+        fold_stem), forward, decode, then one cross-scale NMS per image.
+        With resample="pil" the canvas stays in pixels: each level is
+        resized on the uint8 grid, then normalized. `mark(phase)` records
+        the trace's events."""
         pil = self.ec.resample == "pil"
         if pil:
             # PIL's uint8 rounding does not commute with normalization.
             x0 = images.permute(0, 3, 1, 2).to(torch.float64)
-        elif self.transfer == "jpegdct":
+        elif self.transfer in WIRE_VERSION:
             # normalize commutes with the (linear) resize; straight into the
             # model's compute dtype, as the JAX program does
-            x0 = dct_batch_to_normalized({"_wire": images}, h0p, w0p, dtype=self.dtype)
+            unpack = dct4_batch_to_normalized if self.transfer == "jpegdct4" else dct_batch_to_normalized
+            x0 = unpack({"_wire": images}, h0p, w0p, dtype=self.dtype)
+            x0 = x0.permute(0, 3, 1, 2).contiguous()
+        elif self.transfer == "yuv420":
+            x0 = yuv420_to_normalized(*yuv420_wire(images, h0p, w0p), dtype=self.dtype)
             x0 = x0.permute(0, 3, 1, 2).contiguous()
         else:
             x0 = self._normalize_nchw(images)
@@ -437,7 +474,13 @@ class PyramidDetector:
             f = 2.0**s
             thp, twp = self._level_canvas(h0p, w0p, s)
             level = torch.stack([level_hw[:, si, 0].clamp(1, thp), level_hw[:, si, 1].clamp(1, twp)], 1)
-            if f == 1.0 and (thp, twp) == (h0p, w0p):
+            fold = not pil and self.ec.fold_stem and f == 2.0 and (thp, twp) == (2 * h0p, 2 * w0p)
+            if fold:
+                # The 2x level's factor is exactly 2.0 for every image (an
+                # integer short side h goes to 2h), so the upsample folds
+                # into conv1 and the stem runs at 1x.
+                xs = folded_stem_2x(x0, replica.model.model.conv1.weight)
+            elif f == 1.0 and (thp, twp) == (h0p, w0p):
                 # At scale 1 every image's level is its own size, and both
                 # resizes at scale 1 are exactly the identity.
                 xs = self._normalize_nchw(images) if pil else x0
@@ -447,7 +490,7 @@ class PyramidDetector:
             else:
                 xs = resize_batch(x0, (thp, twp), size_hw, level)
             mark(f"resize {s}")
-            out = replica.model(xs.permute(0, 2, 3, 1))
+            out = replica.model(xs if fold else xs.permute(0, 2, 3, 1), stem_precomputed=fold)
             mark(f"forward {s}")
             # three stride-2 stages: ceil(valid / 8) heatmap rows/cols
             hm = torch.div(level + st - 1, st, rounding_mode="floor")

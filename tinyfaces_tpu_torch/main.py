@@ -20,7 +20,10 @@ and convolutions (cuDNN allows it by default).
 with PIL: the host entropy-decodes once per image (cached) and ships the
 coefficients of each crop's source region, and the device decodes and
 augments them (data/dct_train.py); no PIL is needed for baseline 4:2:0 or
-grayscale files.
+grayscale files. `--transfer yuv420` augments on the host as `rgb` does and
+ships each canvas as planar YCbCr 4:2:0 (1.5 B/px, converted in the loader
+threads in NumPy, byte-equal to PIL's converter); the device converts it
+back inside the step.
 
 Multi-process data-parallel training: start one process per rank with the
 same flags plus `--num-processes N --process-id r --coordinator-address
@@ -34,8 +37,7 @@ rank at the same epoch boundary, each rank waits for the others before it
 exits, only rank 0 writes checkpoints and the JSONL, and every rank prints
 its kernel launches.
 
-Not ported: `--transfer yuv420` (ROADMAP item 15) exits naming it. Nothing
-falls back to the CPU: without a GPU, `--device cpu` must be given.
+Nothing falls back to the CPU: without a GPU, `--device cpu` must be given.
 """
 
 from __future__ import annotations
@@ -100,8 +102,8 @@ def arguments(argv=None):
     parser.add_argument("--transfer", default="rgb",
                         choices=("rgb", "yuv420", "jpegdct"),
                         help="train-input wire format: rgb decodes with PIL and augments "
-                             "on the host; jpegdct ships DCT coefficients and augments on the "
-                             "device; yuv420 is not ported (ROADMAP item 15)")
+                             "on the host; yuv420 then ships planar YCbCr 4:2:0 (half the "
+                             "bytes); jpegdct ships DCT coefficients and augments on the device")
     parser.add_argument("--nan-guard", action="store_true",
                         help="drop non-finite updates on device instead of "
                              "poisoning the weights")
@@ -121,8 +123,6 @@ def arguments(argv=None):
 
 
 def _check_supported(args, backend: str | None) -> torch.device:
-    if args.transfer not in ("rgb", "jpegdct"):
-        raise SystemExit(f"--transfer {args.transfer} is not ported: ROADMAP item 15")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but torch.cuda.is_available() is False; "

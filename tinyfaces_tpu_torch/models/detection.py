@@ -16,9 +16,9 @@ permuted NHWC input is a channels_last NCHW tensor, so no copy is made.
 upsample run in it too, and the output is float32 whatever it is, as in
 the JAX model, so decode and NMS always see float32. `remat=True`
 recomputes each bottleneck's activations in the backward pass
-(models/resnet.py), as the JAX model's `remat`. The JAX model's
-`stem_precomputed` entry (the folded 2x stem of ops/stemfold.py) is not
-ported.
+(models/resnet.py), as the JAX model's `remat`. `stem_precomputed=True`
+takes conv1's output, (B, 64, H/2, W/2) NCHW, in place of the image and
+starts at bn1: the pyramid's folded 2x stem (ops/stemfold.py) computes it.
 """
 
 from __future__ import annotations
@@ -72,9 +72,11 @@ class TinyFacesDetector(nn.Module):
         self.score_res4 = Conv2d(1024, out, 1)
         self.score4_upsample = DepthwiseConvTranspose2x(out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) -> (B, H/8, W/8, 5T) float32."""
-        res3, res4 = self.model(x.permute(0, 3, 1, 2))
+    def forward(self, x: torch.Tensor, stem_precomputed: bool = False) -> torch.Tensor:
+        """(B, H, W, 3) -> (B, H/8, W/8, 5T) float32; with stem_precomputed,
+        conv1's (B, 64, H/2, W/2) -> the same."""
+        res3, res4 = self.model(x if stem_precomputed else x.permute(0, 3, 1, 2),
+                                stem_precomputed=stem_precomputed)
         score3 = self.score_res3(res3)
         score4 = self.score4_upsample(self.score_res4(res4))
         # Top-left crop to res3's grid (reference model.py:107-124).

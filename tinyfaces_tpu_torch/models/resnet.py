@@ -228,10 +228,16 @@ class ResNetBackbone(nn.Module):
                 in_ch = width * Bottleneck.expansion
             setattr(self, f"layer{stage_idx}", nn.Sequential(*blocks))
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, stem_precomputed: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """`stem_precomputed`: x is conv1's output (B, 64, H/2, W/2) already,
+        as the pyramid's folded 2x stem (ops/stemfold.py) computes it; the
+        forward starts at bn1."""
         if self.dtype is not None:
             x = x.to(self.dtype)
-        x = max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
+        if not stem_precomputed:
+            x = self.conv1(x)
+        x = max_pool_3x3_s2(F.relu(self.bn1(x)))
         x = self._stage(self.layer1, x)
         res3 = self._stage(self.layer2, x)
         res4 = self._stage(self.layer3, res3)

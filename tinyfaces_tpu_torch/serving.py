@@ -1,8 +1,8 @@
 """Dynamic-batching detection service over PyramidDetector.
 
-Port of tinyfaces_tpu/serving.py on the `rgb` and `jpegdct` wires:
-  * callers submit (H, W, 3) uint8 images — on the jpegdct wire also JPEG
-    bytes or a DCTImage — from any thread and get a Future that resolves to
+Port of tinyfaces_tpu/serving.py on every wire of PyramidDetector:
+  * callers submit (H, W, 3) uint8 images — on the JPEG wires (`jpegdct`,
+    `jpegdct4`) also JPEG bytes or a DCTImage — from any thread and get a Future that resolves to
     the (N, 5) detections;
   * a dispatcher thread groups pending requests into device batches —
     same-bucket images together, at most `max_batch`, waiting at most
@@ -50,12 +50,12 @@ class DetectionService:
 
     def submit(self, image) -> Future:
         """Enqueue one image; resolves to (N, 5) detections. Takes (H, W, 3)
-        uint8 arrays; on the jpegdct wire also JPEG bytes or a DCTImage.
+        uint8 arrays; on the JPEG wires also JPEG bytes or a DCTImage.
         Baseline 4:2:0 and grayscale JPEG bytes stay raw (a header-only
         probe here) and are entropy-decoded and packed in one C++ pass at
         dispatch; other inputs are entropy-decoded (or transcoded) on the
         caller's thread."""
-        if self.detector.transfer == "jpegdct":
+        if self.detector.transfer.startswith("jpegdct"):
             image = as_wire_input(image)
         fut: Future = Future()
         self._queue.put((image, fut))

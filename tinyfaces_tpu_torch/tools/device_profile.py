@@ -179,16 +179,16 @@ def main(argv=None, *, stage_sizes: Sequence[int] = RESNET101_STAGES, hw: tuple 
         print(json.dumps(r))
         return r
     from tinyfaces_tpu_torch.bench import natural_images
-    from tinyfaces_tpu_torch.utils.instruments import (build_detector, card, check_transfer,
-                                                       jpeg_bytes, resolve_device)
+    from tinyfaces_tpu_torch.utils.instruments import (PYRAMID_WIRES, build_detector, card,
+                                                       check_transfer, pyramid_inputs,
+                                                       resolve_device)
 
-    check_transfer(args.transfer, ("jpegdct", "rgb"))
+    check_transfer(args.transfer, PYRAMID_WIRES)
     dev = resolve_device(args.device)
     det = build_detector(dev, transfer=args.transfer, stage_sizes=stage_sizes)
 
     def inputs_for(seed):
-        imgs = natural_images(args.batch, *hw, seed=seed)
-        return jpeg_bytes(imgs) if args.transfer == "jpegdct" else imgs
+        return pyramid_inputs(args.transfer, natural_images(args.batch, *hw, seed=seed))
 
     r = profile(det, inputs_for, args.iters, args.out_dir, args.top)
     r.update(card=card(dev), transfer=args.transfer)

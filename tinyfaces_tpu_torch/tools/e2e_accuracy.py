@@ -23,8 +23,8 @@ is the production code path:
      and per epoch, AP per split, recall by height, train and eval rates,
      the K1 launches the training runs report, the device.
 
-The port of tools/e2e_accuracy.py; `--cpu` is `--device cpu` here, and the
-train wire `yuv420` exits naming ROADMAP item 15.
+The port of tools/e2e_accuracy.py; `--cpu` is `--device cpu` here. The
+train wire defaults to `yuv420`, as in the JAX tool.
 """
 
 from __future__ import annotations
@@ -154,10 +154,10 @@ def main(argv=None) -> dict:
                          "from the emergency checkpoint (e.g. --epochs 50 --sigterm-epoch "
                          "22 crosses the epoch-20 StepLR decay, seams mid-schedule, and "
                          "crosses epoch 40 in the resumed run)")
-    ap.add_argument("--train-transfer", default="rgb", choices=("yuv420", "rgb", "jpegdct"),
+    ap.add_argument("--train-transfer", default="yuv420", choices=("yuv420", "rgb", "jpegdct"),
                     help="train input wire passed to main --transfer (jpegdct = device-side "
-                         "decode and augmentation; yuv420 is not ported: ROADMAP item 15); "
-                         "the eval leg always uses the production jpegdct wire")
+                         "decode and augmentation); the eval leg always uses the production "
+                         "jpegdct wire")
     ap.add_argument("--distribution", default="hard", choices=("hard", "easy"),
                     help="painted-face distribution (hard = WIDER-like small-face tail + "
                          "crowds; easy = fewer, larger faces)")

@@ -14,7 +14,8 @@ over its first 8 images:
   per-image   eval_batch=1 (the reference's serial path).
 
 Prints img/s for each and the ratios. The model is bf16 ResNet-101 with
-seeded weights; `--transfer` jpegdct (the CLI's default) or rgb.
+seeded weights; `--transfer` jpegdct (the CLI's default), jpegdct4, rgb or
+yuv420.
 """
 
 from __future__ import annotations
@@ -108,10 +109,10 @@ def main(argv=None, *, stage_sizes: Sequence[int] = RESNET101_STAGES,
     args = ap.parse_args(argv)
     from tinyfaces_tpu_torch.data import load_templates
     from tinyfaces_tpu_torch.data.wider_face import WIDERFace
-    from tinyfaces_tpu_torch.utils.instruments import (build_detector, card, check_transfer,
-                                                       resolve_device)
+    from tinyfaces_tpu_torch.utils.instruments import (PYRAMID_WIRES, build_detector, card,
+                                                       check_transfer, resolve_device)
 
-    check_transfer(args.transfer, ("jpegdct", "rgb"))
+    check_transfer(args.transfer, PYRAMID_WIRES)
     dev = resolve_device(args.device)
     root = Path(args.root)
     if root.exists():

@@ -1,8 +1,8 @@
-"""Device ceiling of the `jpegdct` fused pyramid: its time with no host
-decode in the timed region.
+"""Device ceiling of the `jpegdct` (or `jpegdct4`) fused pyramid: its time
+with no host decode in the timed region.
 
     python -m tinyfaces_tpu_torch.tools.jpegdct_ceiling [--mode device|upload] [--batch 32]
-        [--iters 12] [--dtype bf16|fp32] [--device cuda]
+        [--iters 12] [--dtype bf16|fp32] [--transfer jpegdct|jpegdct4] [--device cuda]
 
 Port of tools/jpegdct_ceiling.py. The wires of `--iters` batches are
 packed beforehand from JPEG files (quality 90, 4:2:0) of bench's natural
@@ -17,7 +17,8 @@ images, the batch order rotated per wire so no two are equal.
   dispatches and fetches with 3 batches in flight (bench's loop without
   the host decode), host clock.
 
-`--transfer jpegdct4` (the v4 wire) exits naming ROADMAP item 15.
+`--transfer jpegdct4` packs and reconstructs the bitmap-sparse wire v4
+instead of v3.
 """
 
 from __future__ import annotations
@@ -122,28 +123,27 @@ def main(argv=None, *, stage_sizes: Sequence[int] = RESNET101_STAGES, hw: tuple 
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--iters", type=int, default=12)
     ap.add_argument("--mode", choices=["device", "upload"], default="device")
-    ap.add_argument("--transfer", default="jpegdct")
+    ap.add_argument("--transfer", default="jpegdct", choices=("jpegdct", "jpegdct4"),
+                    help="wire format: v3 zigzag-dense or v4 bitmap-sparse")
     ap.add_argument("--dtype", choices=["bf16", "fp32"], default="bf16")
     ap.add_argument("--device", default="cuda", help="torch device (cuda, cuda:N or cpu)")
     args = ap.parse_args(argv)
     from tinyfaces_tpu_torch.bench import natural_images
-    from tinyfaces_tpu_torch.utils.instruments import (build_detector, card, check_transfer,
-                                                       jpeg_bytes, resolve_device)
+    from tinyfaces_tpu_torch.utils.instruments import build_detector, card, jpeg_bytes, resolve_device
 
-    check_transfer(args.transfer, ("jpegdct",))
     dev = resolve_device(args.device)
     if args.dtype == "fp32":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    det = build_detector(dev, transfer="jpegdct", stage_sizes=stage_sizes,
+    det = build_detector(dev, transfer=args.transfer, stage_sizes=stage_sizes,
                          dtype=torch.bfloat16 if args.dtype == "bf16" else None)
     packed = pack_wires(det, jpeg_bytes(natural_images(args.batch, *hw)), args.iters)
     r = run(det, packed, args.mode)
-    r.update(card=card(dev), dtype=args.dtype)
+    r.update(card=card(dev), dtype=args.dtype, transfer=args.transfer)
     recon = (f", reconstruction {r['reconstruction_ms']:.2f} ms "
              f"({100 * r['reconstruction_share']:.1f}%)" if "reconstruction_ms" in r else "")
     label = "device time" if args.mode == "device" else "upload+dispatch+fetch time"
-    print(f"jpegdct fused pyramid {args.dtype} {label}: {r['ms_per_batch']:.2f} ms/batch{r['batch']} "
+    print(f"{args.transfer} fused pyramid {args.dtype} {label}: {r['ms_per_batch']:.2f} ms/batch{r['batch']} "
           f"= {r['img_per_s']:.2f} img/s ({r['iters']} distinct wires of "
           f"{r['wire_MiB_per_batch']:.2f} MiB, {r['clock']}){recon} ({r['card']})")
     print(json.dumps(r))

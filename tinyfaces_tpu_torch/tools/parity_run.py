@@ -21,8 +21,8 @@ whole proof chain with no manual steps:
 Smoke mode (--synthetic N) builds an N-image synthetic WIDER tree and runs
 the chain with the checkpoint given, or with seeded weights.
 
-The port of tools/parity_run.py, on the port's CLIs and grader; the
-wire's `yuv420`/`jpegdct4` exit naming ROADMAP item 15.
+The port of tools/parity_run.py, on the port's CLIs and grader, on every
+wire of the pyramid (`--resample pil`, the default, takes only `rgb`).
 """
 
 from __future__ import annotations
@@ -132,8 +132,8 @@ def arguments(argv=None):
     parser.add_argument("--transfer", default="rgb",
                         choices=("rgb", "yuv420", "jpegdct", "jpegdct4"),
                         help="wire format for the fused sweep (rgb = bit-exact reference "
-                             "input; jpegdct = the production DCT wire; yuv420 and jpegdct4 "
-                             "are not ported: ROADMAP item 15)")
+                             "input; yuv420 = planar YCbCr 4:2:0; jpegdct = the production DCT "
+                             "wire; jpegdct4 = its bitmap-sparse v4)")
     parser.add_argument("--eval-batch", type=int, default=32,
                         help="device batch per shape bucket (see "
                              "evaluate_model.bucket_batch_for)")
@@ -150,8 +150,6 @@ def arguments(argv=None):
 
 def main(argv=None) -> dict:
     args = arguments(argv)
-    if args.transfer not in ("rgb", "jpegdct"):
-        raise SystemExit(f"--transfer {args.transfer} is not ported (ROADMAP item 15)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but torch.cuda.is_available() is False; "

@@ -1,7 +1,7 @@
 """Serving latency SLO benchmark: p50/p95/p99 against offered load.
 
     python -m tinyfaces_tpu_torch.tools.serving_bench [--loads 4,8,12,16] [--duration 20]
-        [--max-batch 16] [--max-delay-ms 25] [--transfer jpegdct] [--device cuda] [--out F]
+        [--max-batch 16] [--max-delay-ms 25] [--transfer yuv420] [--device cuda] [--out F]
 
 Port of tools/serving_bench.py. It drives `serving.DetectionService` (bf16
 ResNet-101 with seeded weights, `EvalConfig()` defaults) with an open-loop
@@ -11,8 +11,9 @@ ladder is warmed first, so no measurement meets a first call. Each load
 level prints one JSON line {"offered_load", "achieved", "n", "p50_ms",
 "p95_ms", "p99_ms", "max_ms", ...}, latency from submit to result.
 
-The wire is `jpegdct` (JPEG files, quality 90, 4:2:0) by default, `rgb`
-the other choice; `yuv420` exits naming ROADMAP item 15.
+The wire is `yuv420` by default, as in the JAX tool (the host converts each
+batch's canvas to planar YCbCr 4:2:0); `rgb`, `jpegdct` and `jpegdct4` (JPEG
+files, quality 90, 4:2:0) are the other choices.
 """
 
 from __future__ import annotations
@@ -109,20 +110,20 @@ def main(argv=None, *, stage_sizes: Sequence[int] = RESNET101_STAGES) -> list:
     ap.add_argument("--duration", type=float, default=20.0, help="seconds per load level")
     ap.add_argument("--max-batch", type=int, default=16)
     ap.add_argument("--max-delay-ms", type=float, default=25.0)
-    ap.add_argument("--transfer", default="jpegdct")
+    ap.add_argument("--transfer", default="yuv420")
     ap.add_argument("--size", default="768x1024")
     ap.add_argument("--device", default="cuda", help="torch device (cuda, cuda:N or cpu)")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     from tinyfaces_tpu_torch.bench import natural_images
-    from tinyfaces_tpu_torch.utils.instruments import (build_detector, card, check_transfer,
-                                                       jpeg_bytes, resolve_device)
+    from tinyfaces_tpu_torch.utils.instruments import (PYRAMID_WIRES, build_detector, card,
+                                                       check_transfer, pyramid_inputs,
+                                                       resolve_device)
 
-    check_transfer(args.transfer, ("jpegdct", "rgb"))
+    check_transfer(args.transfer, PYRAMID_WIRES)
     dev = resolve_device(args.device)
     h, w = (int(v) for v in args.size.lower().split("x"))
-    images = natural_images(8, h, w)
-    inputs = jpeg_bytes(images) if args.transfer == "jpegdct" else images
+    inputs = pyramid_inputs(args.transfer, natural_images(8, h, w))
     detector = build_detector(dev, transfer=args.transfer, stage_sizes=stage_sizes)
     name = card(dev)
     print(f"# serving {args.transfer} {h}x{w} on {name}", flush=True)

@@ -17,7 +17,7 @@ the closed-loop accuracy tools share.
    the K1 launches the child runs report.
 
 The port of tools/train_soak.py. PIL is imported only where a JPEG is
-written; the train wire defaults to `rgb` (`yuv420` is ROADMAP item 15).
+written; the train wire defaults to `yuv420`, as in the JAX tool.
 """
 
 from __future__ import annotations
@@ -36,13 +36,13 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parents[2]
-TRANSFERS = ("rgb", "jpegdct")
+TRANSFERS = ("rgb", "yuv420", "jpegdct")
 _LAUNCHES = re.compile(r"^kernel launches: dense_assignment_reductions (\d+)$", re.M)
 
 
 def check_transfer(transfer: str) -> str:
     if transfer not in TRANSFERS:
-        raise SystemExit(f"--transfer {transfer} is not ported: ROADMAP item 15")
+        raise SystemExit(f"unknown --transfer {transfer}; choose one of {TRANSFERS}")
     return transfer
 
 
@@ -159,7 +159,7 @@ def make_wider_tree(root: Path, n_images: int, seed: int = 0,
 def run_main(tree: Path, workdir: Path, metrics: Path, epochs: int,
              batch: int, extra: list[str], sigterm_epoch: int = -1,
              timeout_s: int = 14400, device: str = "cuda",
-             transfer: str = "rgb") -> tuple[int, str]:
+             transfer: str = "yuv420") -> tuple[int, str]:
     """Run the port's training CLI as a child process in `workdir`
     (checkpoints land in workdir/weights). If sigterm_epoch >= 0, SIGTERM
     the child the first time its log shows that epoch training — the
@@ -227,9 +227,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", default="", help="default <workdir>/TRAIN_SOAK.json")
     ap.add_argument("--device", default="cuda", help="device of the child runs (cuda or cpu)")
     ap.add_argument("--arch", default="resnet101")
-    ap.add_argument("--transfer", default="rgb", choices=("rgb", "yuv420", "jpegdct"),
-                    help="train-input wire (main --transfer); yuv420 is not ported "
-                         "(ROADMAP item 15)")
+    ap.add_argument("--transfer", default="yuv420", choices=TRANSFERS,
+                    help="train-input wire (main --transfer)")
     args = ap.parse_args(argv)
     check_transfer(args.transfer)
     sig_epoch = (args.sigterm_epoch if args.sigterm_epoch >= 0

@@ -1,5 +1,5 @@
-"""Wire-size statistics: B/px of the `jpegdct` wire against JPEG quality and
-content.
+"""Wire-size statistics: B/px of the `jpegdct` (v3) and `jpegdct4` (v4)
+wires against JPEG quality and content.
 
     python -m tinyfaces_tpu_torch.tools.wire_stats [--h 768] [--w 1024] [--n 8] [--json]
         [--psnr] [--device cuda]
@@ -11,12 +11,12 @@ headline wire size is not a friendly input's. Host-only statistics; the
 matching worst-case throughput is `BENCH_QUALITY=95 BENCH_CONTENT=texture
 python -m tinyfaces_tpu_torch.bench`.
 
-The wire is fixed-capacity (its bytes depend on the canvas only); content
-shows as truncation, the share of nonzero AC coefficients past the zigzag
-cutoff. `--psnr` reconstructs one image per cell on `--device` through
-`ops/jpeg.dct_batch_to_normalized` and reports its PSNR against PIL's
-full decode of the same bytes. Only the v3 wire's columns: the v4 wire is
-ROADMAP item 15's, and so are its columns.
+Both wires are fixed-capacity (their bytes depend on the canvas only);
+content shows as truncation, the share of nonzero AC coefficients past the
+zigzag cutoff (v3 and v4) or past v4's image-wide value-stream budget.
+`--psnr` reconstructs one image per cell on `--device` through
+`ops/jpeg.dct_batch_to_normalized` / `dct4_batch_to_normalized` and
+reports its PSNR against PIL's full decode of the same bytes.
 """
 
 from __future__ import annotations
@@ -72,8 +72,8 @@ def content_images(kind: str, n: int, h: int, w: int, seed: int = 0):
 
 
 def measure(imgs, h, w, quality: int) -> dict:
-    """JPEG B/px, nonzero AC coefficients, the v3 wire's B/px and the share
-    of nonzero AC coefficients it drops."""
+    """JPEG B/px, nonzero AC coefficients, and per wire version (v3, v4) its
+    B/px and the share of nonzero AC coefficients it drops."""
     from tinyfaces_tpu_torch.data import jpegdct
     from tinyfaces_tpu_torch.utils.instruments import jpeg_bytes
 
@@ -85,34 +85,37 @@ def measure(imgs, h, w, quality: int) -> dict:
             if plane is not None:
                 nonzero_ac += int(np.count_nonzero(plane[..., 1:]))
     px = len(imgs) * h * w
-    before = jpegdct.truncation_stats()["truncated_coeffs"]
-    wire = jpegdct.pack_dct_batch(jpegs, h, w)
-    dropped = jpegdct.truncation_stats()["truncated_coeffs"] - before
-    return {"jpeg_Bpx": sum(len(j) for j in jpegs) / px, "nonzero_ac": nonzero_ac,
-            "v3_Bpx": jpegdct.wire_bytes(wire) / px,
-            "v3_drop_pct": 100.0 * dropped / max(nonzero_ac, 1)}
+    row = {"jpeg_Bpx": sum(len(j) for j in jpegs) / px, "nonzero_ac": nonzero_ac}
+    for version in (3, 4):
+        before = jpegdct.truncation_stats()["truncated_coeffs"]
+        wire = jpegdct.pack_dct_batch(jpegs, h, w, wire_version=version)
+        dropped = jpegdct.truncation_stats()["truncated_coeffs"] - before
+        row[f"v{version}_Bpx"] = jpegdct.wire_bytes(wire) / px
+        row[f"v{version}_drop_pct"] = 100.0 * dropped / max(nonzero_ac, 1)
+    return row
 
 
-def wire_psnr(img: np.ndarray, h: int, w: int, quality: int, device="cpu") -> float:
-    """PSNR of the v3 wire's reconstruction (float32, on `device`) against
-    PIL's full decode of the same JPEG bytes: what truncation costs in
-    pixels, the JPEG's own loss aside."""
+def wire_psnr(img: np.ndarray, h: int, w: int, quality: int, device="cpu",
+              version: int = 3) -> float:
+    """PSNR of wire `version`'s reconstruction (float32, on `device`)
+    against PIL's full decode of the same JPEG bytes: what truncation costs
+    in pixels, the JPEG's own loss aside."""
     import io
 
     import torch
 
     from tinyfaces_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
     from tinyfaces_tpu_torch.data import jpegdct
-    from tinyfaces_tpu_torch.ops.jpeg import dct_batch_to_normalized
+    from tinyfaces_tpu_torch.ops.jpeg import dct4_batch_to_normalized, dct_batch_to_normalized
     from tinyfaces_tpu_torch.utils.instruments import jpeg_bytes
 
     data = jpeg_bytes([img], quality)[0]  # exits naming PIL without it
     from PIL import Image
 
     ref = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"), np.float32)
-    wire = jpegdct.pack_dct_batch([data], h, w)
-    x = dct_batch_to_normalized({"_wire": torch.from_numpy(wire["_wire"]).to(device)}, h, w,
-                                dtype=torch.float32)
+    wire = jpegdct.pack_dct_batch([data], h, w, wire_version=version)
+    unpack = dct4_batch_to_normalized if version == 4 else dct_batch_to_normalized
+    x = unpack({"_wire": torch.from_numpy(wire["_wire"]).to(device)}, h, w, dtype=torch.float32)
     x = x[0, :img.shape[0], :img.shape[1]].cpu().numpy()
     recon = (x * np.asarray(IMAGENET_STD) + np.asarray(IMAGENET_MEAN)) * 255.0
     mse = float(np.mean((recon - ref) ** 2))
@@ -126,7 +129,8 @@ def table(h: int, w: int, n: int, psnr: bool = False, device="cpu") -> dict:
         for q in QUALITIES:
             row = measure(imgs, h, w, q)
             if psnr:
-                row["v3_psnr_db"] = wire_psnr(imgs[0], h, w, q, device)
+                for version in (3, 4):
+                    row[f"v{version}_psnr_db"] = wire_psnr(imgs[0], h, w, q, device, version)
             out[f"{kind}/q{q}"] = row
     return out
 
@@ -149,15 +153,17 @@ def main(argv=None) -> dict:
     if args.json:
         print(json.dumps(rows, indent=1, default=float))
         return rows
-    psnr_hdr = f" {'v3psnr':>7}" if args.psnr else ""
-    print(f"{'content/quality':>16} {'jpegB/px':>9} {'v3B/px':>7} {'v3drop%':>8}{psnr_hdr}")
+    psnr_hdr = f" {'v3psnr':>7} {'v4psnr':>7}" if args.psnr else ""
+    print(f"{'content/quality':>16} {'jpegB/px':>9} {'v3B/px':>7} {'v4B/px':>7} {'v3drop%':>8} "
+          f"{'v4drop%':>8}{psnr_hdr}")
     for key, row in rows.items():
-        psnr = f" {row['v3_psnr_db']:7.1f}" if args.psnr else ""
-        print(f"{key:>16} {row['jpeg_Bpx']:9.3f} {row['v3_Bpx']:7.3f} {row['v3_drop_pct']:8.3f}{psnr}")
-    worst = max(rows.items(), key=lambda kv: kv[1]["v3_drop_pct"])
-    print(f"\nwire bytes are fixed-capacity (content-independent); worst v3 truncation: "
-          f"{worst[0]} drops {worst[1]['v3_drop_pct']:.2f}% of nonzero AC; rgb = 3.0 B/px. "
-          f"The v4 (jpegdct4) and yuv420 columns wait for ROADMAP item 15.")
+        psnr = f" {row['v3_psnr_db']:7.1f} {row['v4_psnr_db']:7.1f}" if args.psnr else ""
+        print(f"{key:>16} {row['jpeg_Bpx']:9.3f} {row['v3_Bpx']:7.3f} {row['v4_Bpx']:7.3f} "
+              f"{row['v3_drop_pct']:8.3f} {row['v4_drop_pct']:8.3f}{psnr}")
+    worst = max(rows.items(), key=lambda kv: kv[1]["v4_drop_pct"])
+    print(f"\nwire bytes are fixed-capacity (content-independent); worst v4 truncation: "
+          f"{worst[0]} drops {worst[1]['v4_drop_pct']:.2f}% of nonzero AC (v3 "
+          f"{worst[1]['v3_drop_pct']:.2f}%); yuv420 = 1.5 B/px, rgb = 3.0")
     return rows
 
 

@@ -20,8 +20,9 @@ for one device per process:
 Each step's randomness comes from a generator seeded with (seed, step), and
 each epoch's shuffle and augmentation from (seed, epoch), so a resumed run
 draws exactly what an uninterrupted one would. The input is the `rgb` wire
-(uint8 pixels) or `jpegdct` (DCT coefficients of each sample's source
-region, augmented on the device); `yuv420` is not ported.
+(uint8 pixels), `yuv420` (the augmented pixels as planar YCbCr 4:2:0,
+converted on the device) or `jpegdct` (DCT coefficients of each sample's
+source region, augmented on the device).
 
 Under a process group of N ranks (parallel/distributed.py) `TrainConfig.
 batch_size` is the global batch: each rank loads its rows of it, BatchNorm
@@ -274,7 +275,7 @@ class Trainer:
     nan_guard: bool = False  # drop non-finite updates on device
     metrics_path: Optional[str | Path] = None  # JSONL structured log
     augment: str = "native"  # "native": the C++ engine; "python": dataset[i]
-    transfer: str = "rgb"  # train-input wire: "rgb" pixels or "jpegdct" coefficients
+    transfer: str = "rgb"  # train-input wire: "rgb" or "yuv420" pixels, "jpegdct" coefficients
 
     def __post_init__(self):
         if self.augment not in ("native", "python"):
@@ -331,7 +332,8 @@ class Trainer:
         augments; with "python" its items are taken as they come (a
         WIDERFace's Python augmentation, or any map-style dataset of
         train-sample dicts). With transfer="jpegdct" either loader takes
-        the dataset's `getitem_train_dct`."""
+        the dataset's `getitem_train_dct`; with "yuv420" either converts
+        its samples' pixels (loader pack="yuv420")."""
         cls = NativePrefetchLoader if self.augment == "native" else PrefetchLoader
         loader = cls(dataset, self.tc.batch_size, device=self.device, workers=self.tc.workers,
                      seed=self.seed, epoch=epoch, pack=self.transfer, rank=self.rank,
@@ -370,7 +372,7 @@ class Trainer:
         idx = 0
         while batch is not None:
             lb = self.train_step(batch)
-            images = batch["image"] if "image" in batch else batch["dct_wire"]
+            images = next(batch[k] for k in ("image", "image_y", "dct_wire") if k in batch)
             pending.append((idx, images.shape[0] * self.world, lb))
             # Take the next batch (queue hand-over, non-blocking upload)
             # while this step runs on the device.

@@ -7,7 +7,9 @@
 * `sync`, `peak_gib`, `cuda_events_ms`: device clocks and memory;
 * `jpeg_bytes`: synthetic JPEG files, the one place PIL is needed (the
   instrument exits naming PIL when it is missing);
-* `unported`: the exit for a choice that ROADMAP item 15 holds;
+* `unported`: the exit for a choice that ROADMAP item 15 holds
+  (`train_bench --multi`); `check_transfer`: the exit for a wire an
+  instrument does not take; `pyramid_inputs`: a pyramid's inputs on a wire;
 * `build_detector`: the pyramid with seeded weights, as the JAX benches'
   `get_model`.
 """
@@ -24,6 +26,7 @@ import torch
 from tinyfaces_tpu_torch.models.resnet import RESNET101_STAGES
 
 ITEM15 = "ROADMAP item 15 (decide or drop)"
+PYRAMID_WIRES = ("jpegdct", "jpegdct4", "rgb", "yuv420")  # what PyramidDetector takes
 
 
 def unported(what: str) -> SystemExit:
@@ -99,12 +102,16 @@ def jpeg_bytes(images: Sequence[np.ndarray], quality: int = 90, subsampling: int
     return out
 
 
-def check_transfer(transfer: str, ported: Sequence[str]) -> None:
-    """Exit for a wire that item 15 holds or that is unknown."""
-    if transfer in ("yuv420", "jpegdct4"):
-        raise unported(f"transfer {transfer!r}")
-    if transfer not in ported:
-        raise SystemExit(f"unknown transfer {transfer!r}; choose one of {tuple(ported)}")
+def pyramid_inputs(transfer: str, images: Sequence[np.ndarray], quality: int = 90) -> list:
+    """The pyramid's inputs on `transfer`: JPEG files (q`quality`, 4:2:0)
+    on the JPEG wires, the uint8 arrays themselves on rgb and yuv420."""
+    return jpeg_bytes(images, quality) if transfer.startswith("jpegdct") else list(images)
+
+
+def check_transfer(transfer: str, taken: Sequence[str]) -> None:
+    """Exit for a wire the instrument does not take."""
+    if transfer not in taken:
+        raise SystemExit(f"unknown transfer {transfer!r}; choose one of {tuple(taken)}")
 
 
 def build_detector(device: torch.device, *, transfer: str = "jpegdct",
