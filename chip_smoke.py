@@ -1,10 +1,12 @@
 """Smoke run of the PyTorch/CUDA port (tinyfaces_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--against OTHER_CHECKOUT]
+    python3 chip_smoke.py [--against OTHER_CHECKOUT] [--spatial-only]
 
 Phases, each printing its findings; any failure raises and exits non-zero
 (`--against` also builds another checkout's K1 and times it in turns with
-this one, other/this/this/other, at phase 2's timed scenes):
+this one, other/this/this/other, at phase 2's timed scenes;
+`--spatial-only` runs phase 26 alone after its set-up, phase 5's
+calibrated model and phase 13's tree, e.g. over four cards):
 
   0. device: needs CUDA; prints the card's name and power limit and turns
      TF32 off, so float32 means float32;
@@ -188,15 +190,42 @@ this one, other/this/this/other, at phase 2's timed scenes):
      must have such blocks); phase 12's bf16 batch of 32 on
      jpegdct4 and jpegdct in turns: img/s, wire B/px, upload and unpack,
      host pack, truncation counts, peak memory.
+ 26. spatial partitioning (parallel/spatial.py): phase 5's model,
+     EvalConfig() defaults, four 768x1024 images at batch 1 and 4, fp32
+     (TF32 off) and bf16, PyramidDetector(shard="spatial") over every card
+     (on one card, that card four times: correctness only, no speedup)
+     against the unsharded pyramid: fp32 the same count and rows pairing
+     at rtol 1e-4 / atol 1e-3 (else only explained near-ties unpaired at
+     that tolerance, taken at the 2x level's largest coordinate); bf16
+     the share of detections matched at IoU >= 0.99 and the largest score
+     difference, beside the same between batch 1 and batch 4 of the
+     unsharded pyramid, gated on the 1x forward's RMS error against fp32
+     (split at most 1.5x unsplit); ms/image and peak memory per card; then
+     `evaluate_model.main --fp32 --debug` on phase 13's tree unsharded,
+     with `--data-parallel --shard auto` and with `--shard spatial`, the
+     result files paired with the unsharded run's;
+ 27. make_multi_train_step: K=4, ResNet-101 batch 12, 500x500, fp32,
+     deterministic cuDNN, two calls (warm-up step, capture and 3 replays;
+     then 2 replays, a capture at the learning rate the staircase steps
+     down to at step 6, 2 replays) against 8 plain train steps from
+     the same state with the same draws: losses, parameters, BN
+     statistics and momentum bit-equal or within rtol 1e-6 (printed), K1
+     once a step; then tools.train_bench --multi 4 --iters 3 and its plain
+     step in the same process;
+ 28. tools.h2d_probe (16 MiB payloads), tools.prewarm_cache (every
+     library, cached by then) and tools.kernel_selftest (K1 against the
+     plain assignment on the card: PASS).
 
-Phases run in the order 0-4, 19, 20, 5-7, 21, 9-13, 15, 16, 23, 24, 25, 8,
-18, 24's training, 14, 17, 22 (9-13, 16, 21 and 23-25 need phase 5's model,
-18 and 24's training phase 8's tree and run, 22 phase 12's rate).
+Phases run in the order 0-4, 19, 20, 5-7, 21, 9-13, 15, 16, 23, 24, 25, 26,
+8, 18, 24's training, 14, 17, 22, 27, 28 (9-13, 16, 21 and 23-26 need phase
+5's model, 26 phase 13's tree, 18 and 24's training phase 8's tree and run,
+22 phase 12's rate).
 
 The kernel build and the two host builds (the C++ engine, the JPEG
 decoder) run side by side in phase 1. The second-to-last line of output is
 the card's `nvidia-smi` name and power limit; before it, one JSON line
 describes each kernel (its launches on each path, error, times, bound),
+before that one holds phases 26-28's numbers ("spatial_multi_tools"),
 before that one JSON line holds phase 22's instrument numbers, before that
 one phases 23-25's ("wires"), before that
 one phases 18-21's multi-process numbers, before that one phases 15-17's
@@ -247,6 +276,7 @@ from tinyfaces_tpu_torch.ops.assignment import compose_targets, compute_pad_mask
 from tinyfaces_tpu_torch.ops.resize import resize_batch
 from tinyfaces_tpu_torch.parallel import distributed
 from tinyfaces_tpu_torch.parallel.mesh import local_devices
+from tinyfaces_tpu_torch.parallel.spatial import spatial_forward
 from tinyfaces_tpu_torch.serving import DetectionService
 from tinyfaces_tpu_torch.tools import (device_profile, eval_sweep_bench, jpegdct_ceiling,
                                        loader_bench, pipeline_profile, profile_model,
@@ -2581,6 +2611,309 @@ def warm_batch_rate(det: PyramidDetector, images: list, runs: int = 3) -> float:
     return len(images) / float(np.median(times))
 
 
+# --- one image over several cards, K steps from one graph, tools: 26-28 ---
+
+SLICE10_DIR = ROOT / "build" / "chip_smoke" / "slice10"
+
+
+def spatial_devices() -> list[torch.device]:
+    """Every card; on one card, that card four times (the same halo code
+    with same-device copies)."""
+    cards = local_devices("cuda")
+    return cards if len(cards) > 1 else cards * 4
+
+
+def peak_by_card(devices) -> dict:
+    return {str(d): torch.cuda.max_memory_allocated(d) / 2**30 for d in sorted(set(devices), key=str)}
+
+
+def reset_peaks(devices) -> None:
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def same_detections(got: np.ndarray, want: np.ndarray, rtol: float = 1e-4, atol: float = 1e-3) -> bool:
+    """The same count, and the rows pair one to one within np.allclose's
+    tolerance (NMS may list two near-equal scores in either order)."""
+    if got.shape != want.shape:
+        return False
+    used = np.zeros(len(got), bool)
+    for w in want:
+        ok = ~used & (np.abs(got - w) <= atol + rtol * np.abs(w)).all(1)
+        if not ok.any():
+            return False
+        used[int(np.argmax(ok))] = True
+    return True
+
+
+def iou_matched_share(got: np.ndarray, want: np.ndarray, min_iou: float = 0.99):
+    """Greedy one-to-one pairing of want's rows with got's by IoU: the share
+    of want's rows paired at IoU >= min_iou, and the largest score
+    difference of a pair."""
+    if not len(want):
+        return float(len(got) == 0), 0.0
+    iou = iou_np(want[:, :4], got[:, :4]) if len(got) else np.zeros((len(want), 0))
+    used = np.zeros(len(got), bool)
+    hits, score_diff = 0, 0.0
+    for j in range(len(want)):
+        cand = np.where(~used, iou[j], -1.0)
+        if cand.size and cand.max() >= min_iou:
+            i = int(np.argmax(cand))
+            used[i] = True
+            hits += 1
+            score_diff = max(score_diff, float(abs(got[i, 4] - want[j, 4])))
+    return hits / len(want), score_diff
+
+
+def rms(t: torch.Tensor) -> float:
+    return float(t.double().pow(2).mean().sqrt())
+
+
+def phase_spatial(calibrated: TinyFacesDetector, templates_np, dev: torch.device, name: str) -> dict:
+    """Phase 26: one image's forward split over the cards by rows
+    (parallel/spatial.py, shard="spatial") against the unsharded pyramid,
+    EvalConfig() defaults, the 768x1024 bucket at batch 1 and 4, fp32 (TF32
+    off) and bf16; then the evaluate_model CLI with --data-parallel --shard
+    auto and spatial on 5 JPEG files of phase 13's tree.
+
+    fp32: the same detections (same_detections), or only near-ties
+    unpaired at the same tolerance. bf16: the share of detections matched
+    at IoU >= 0.99 and the largest score difference are printed beside the
+    same share between two unsharded runs that differ only in batch size
+    (batch 1 against the image's row of batch 4: cuDNN picks other
+    algorithms, as it does for a slice), and the gate is the forward: the
+    1x level's output in bf16, split and unsplit, against the fp32
+    forward, the split's RMS error at most 1.5x the unsplit's (the split
+    adds nothing beyond bf16's own rounding)."""
+    devices = spatial_devices()
+    n_cards = len(set(devices))
+    images = pink_images(np.random.default_rng(26), [(768, 1024)] * 4)
+    out = {"card": name, "devices": [str(d) for d in devices], "cards": n_cards,
+           "measures": "correctness only (one card, repeated)" if n_cards == 1 else "speed"}
+    for label, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        model = TinyFacesDetector(dtype=dtype).to(dev)
+        model.load_state_dict(calibrated.state_dict())
+        base = PyramidDetector(model, templates_np, DetectorConfig(), EvalConfig(), device=dev)
+        sp = PyramidDetector(model, templates_np, DetectorConfig(), EvalConfig(), device=devices,
+                             shard="spatial")
+        first_image = {}
+        for b in (1, 4):
+            r: dict = {}
+            for tag, det in (("unsharded", base), ("spatial", sp)):
+                packed = det.pack_inputs(images[:b])
+                det._fetch(det.detect_batch_async(packed))  # cuDNN's first calls
+                reset_peaks(det.devices)
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    dets = det._fetch(det.detect_batch_async(packed))
+                r[tag] = {"ms_per_image": 1000.0 * (time.perf_counter() - t0) / (3 * b),
+                          "peak_gib_by_card": peak_by_card(det.devices)}
+                r[tag + "_dets"] = dets
+            got, want = r.pop("spatial_dets"), r.pop("unsharded_dets")
+            first_image[b] = want[0]
+            n_want = sum(len(w) for w in want)
+            r["counts"] = {"spatial": [len(g) for g in got], "unsharded": [len(w) for w in want]}
+            check(all(g.ndim == 2 and g.shape[1] == 5 and np.isfinite(g).all() for g in got)
+                  and n_want > 0, f"spatial {label} b{b}: outputs {[g.shape for g in got]}")
+            if dtype is None:
+                r["same_detections"] = all(same_detections(g, w) for g, w in zip(got, want))
+                if not r["same_detections"]:  # only near-ties may differ, at the same tolerance
+                    pairs = [match_detections(g, w, box_tol=1e-3 + 1e-4 * 2048,
+                                              score_tol=1e-3 + 1e-4 * float(np.abs(w[:, 4]).max()))
+                             for g, w in zip(got, want)]
+                    r["unpaired_near_ties"] = sum(p[1] for p in pairs)
+                verdict = (f"same count and rows within rtol 1e-4 / atol 1e-3: "
+                           f"{r['same_detections']}, unpaired near-ties "
+                           f"{r.get('unpaired_near_ties', 0)}")
+            else:
+                shares = [iou_matched_share(g, w) for g, w in zip(got, want)]
+                r["matched_share_iou_0.99"] = sum(s * len(w) for (s, _), w in zip(shares, want)) / n_want
+                r["max_score_diff"] = max(d for _, d in shares)
+                x = normalize_images(torch.from_numpy(np.stack(images[:b])).to(dev), dtype=dtype)
+                with torch.no_grad():
+                    ref = calibrated(x.float())
+                    err_un = rms(model(x) - ref) / rms(ref)
+                    err_sp = rms(spatial_forward([rep.model for rep in sp.replicas],
+                                                 x.permute(0, 3, 1, 2).contiguous()) - ref) / rms(ref)
+                r["forward_rms_err_vs_fp32"] = {"spatial": err_sp, "unsharded": err_un}
+                check(err_sp <= 1.5 * err_un, f"spatial bf16 b{b}: the split's forward error "
+                      f"{err_sp:.3g} against the fp32 forward exceeds 1.5x the unsplit's {err_un:.3g}")
+                verdict = (f"{100 * r['matched_share_iou_0.99']:.2f}% matched at IoU >= 0.99, max "
+                           f"score diff {r['max_score_diff']:.3g}; 1x forward RMS error against fp32 "
+                           f"{err_sp:.3g} split, {err_un:.3g} unsplit")
+            r["detections"] = n_want
+            out[f"{label}_b{b}"] = r
+            print(f"spatial {label} batch {b} over {len(devices)} slices on {n_cards} card(s) "
+                  f"({out['measures']}): {n_want} detections, counts {json.dumps(r['counts'])}, "
+                  f"{verdict}; ms/image spatial {r['spatial']['ms_per_image']:.1f} vs unsharded "
+                  f"{r['unsharded']['ms_per_image']:.1f}, peak GiB by card spatial "
+                  f"{json.dumps({k: round(v, 2) for k, v in r['spatial']['peak_gib_by_card'].items()})}"
+                  f" vs unsharded {r['unsharded']['peak_gib_by_card'][str(dev)]:.2f} ({name})",
+                  flush=True)
+        share, diff = iou_matched_share(first_image[4], first_image[1])
+        out[f"{label}_batch_size_control"] = {"matched_share_iou_0.99": share, "max_score_diff": diff}
+        print(f"  control, {label} unsharded: image 0 at batch 4 against batch 1: {100 * share:.2f}% "
+              f"matched at IoU >= 0.99, max score diff {diff:.3g}", flush=True)
+        del model, base, sp
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["cli"] = spatial_cli(calibrated, devices)
+    return out
+
+
+def spatial_cli(calibrated: TinyFacesDetector, devices: list) -> dict:
+    """evaluate_model.main --fp32 --debug (5 images) on phase 13's JPEG
+    tree: unsharded, --data-parallel --shard auto (every card) and
+    --data-parallel --shard spatial over the spatial devices; the result
+    files of both sharded runs pair with the unsharded run's."""
+    tree = ROOT / "build" / "chip_smoke" / "val_jpeg"
+    weights = SLICE10_DIR / "calibrated"
+    weights.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": calibrated.state_dict()}, weights)
+    common = [str(tree / "wider_face_val_bbx_gt.txt"), "--dataset-root", str(tree), "--checkpoint",
+              str(weights), "--fp32", "--debug", "--eval-batch", "4", "--workers", "4"]
+    runs = {"unsharded": [], "auto": ["--data-parallel", "--shard", "auto"],
+            "spatial": ["--data-parallel", "--shard", "spatial"]}
+    trees = {}
+    real_local_devices = evaluate_model.local_devices
+    try:
+        for tag, extra in runs.items():
+            if tag == "spatial":
+                evaluate_model.local_devices = lambda device: list(devices)
+            results = SLICE10_DIR / f"cli_{tag}"
+            shutil.rmtree(results, ignore_errors=True)
+            evaluate_model.main(common + extra + ["--results_dir", str(results)])
+            files, n_dets = check_result_tree(results, 5)
+            trees[tag] = {f.relative_to(results): np.array(
+                [ln.split() for ln in f.read_text().splitlines()[2:]], float).reshape(-1, 5)
+                for f in files}
+    finally:
+        evaluate_model.local_devices = real_local_devices
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for tag in ("auto", "spatial"):
+        check(trees[tag].keys() == trees["unsharded"].keys(), f"cli {tag}: other result files")
+        pairs = unpaired = 0
+        for key, want in trees["unsharded"].items():
+            # integer boxes: a sub-pixel difference may flip a rounding
+            p, u, _, _ = match_detections(trees[tag][key], want, box_tol=1.0, score_tol=1e-3)
+            pairs, unpaired = pairs + p, unpaired + u
+        out[tag] = {"pairs": pairs, "unpaired_near_ties": unpaired}
+    print(f"evaluate_model --fp32 --debug (5 JPEG files): --shard auto and --shard spatial "
+          f"({len(devices)} slices) against the unsharded run: {json.dumps(out)}", flush=True)
+    return out
+
+
+def state_of(model: TinyFacesDetector, opt: torch.optim.Optimizer) -> list:
+    momentum = [opt.state[p]["momentum_buffer"] for g in opt.param_groups for p in g["params"]]
+    return [*model.state_dict().values(), *momentum]
+
+
+def phase_multi(templates_np, dev: torch.device, name: str) -> tuple[dict, int]:
+    """Phase 27: make_multi_train_step (one captured CUDA graph of the step)
+    at K=4, batch 12, 500x500, fp32, deterministic cuDNN, twice (a warm-up
+    step, the capture and 3 replays; then 2 replays, a capture at the
+    schedule's next rate and 2 replays of it), against 8 plain steps
+    from the same state and the same draws: losses, parameters, BN
+    statistics and momentum bit-equal (or within rtol 1e-6, printed); K1
+    once a step. Then tools.train_bench --multi 4 and its plain step.
+    Returns the numbers and K1's launches on the multi path."""
+    from tinyfaces_tpu_torch.bench_train import make_synthetic_train_batch
+    from tinyfaces_tpu_torch.trainer import make_multi_train_step, step_generator, train_step
+
+    cfg, k = DetectorConfig(), 4
+    # the staircase steps down after step 5: the second call recaptures for
+    # the new rate at step 6
+    tc = TrainConfig(batch_size=12, lr_step_epochs=1)
+    rng = np.random.default_rng(27)
+    host = [make_synthetic_train_batch(rng, tc.batch_size, cfg) for _ in range(2 * k)]
+    batches = [{n: torch.from_numpy(v).to(dev) for n, v in b.items()} for b in host]
+    trainers = []
+    for _ in range(2):
+        model = init_model(TinyFacesDetector(), torch.Generator().manual_seed(0))
+        trainers.append(Trainer(model=model, cfg=cfg, tc=tc, templates=templates_np, device=dev, seed=3))
+        trainers[-1].setup(steps_per_epoch=6)
+    multi_t, plain_t = trainers
+    check(multi_t.schedule(5) != multi_t.schedule(6), "the rate does not step down at step 6")
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    out: dict = {"card": name, "k": k}
+    try:
+        multi = make_multi_train_step(multi_t.model, multi_t.opt, cfg, multi_t.templates_t,
+                                      multi_t.schedule)
+        assignment_kernel.launch_count = 0
+        t0 = time.perf_counter()
+        got = []
+        for c in range(2):
+            stacked = {n: torch.stack([b[n] for b in batches[c * k:(c + 1) * k]]) for n in batches[0]}
+            got.append(torch.stack(list(multi(stacked, multi_t.seed, c * k))))
+        torch.cuda.synchronize(dev)
+        out["multi_s"] = time.perf_counter() - t0
+        launches = assignment_kernel.launch_count
+        check(launches == 2 * k, f"multi: K1 {launches} launches in {2 * k} steps")
+        want = []
+        for step, b in enumerate(batches):
+            lb = train_step(plain_t.model, plain_t.opt, b, step_generator(plain_t.seed, step, dev),
+                            cfg=cfg, templates=plain_t.templates_t, lr=plain_t.schedule(step))
+            want.append(torch.stack(list(lb)))
+        got, want = torch.cat(got, 1).t(), torch.stack(want)
+        pairs = list(zip(state_of(multi_t.model, multi_t.opt), state_of(plain_t.model, plain_t.opt)))
+        out["losses_bit_equal"] = bool(torch.equal(got, want))
+        out["state_bit_equal"] = all(torch.equal(a, b) for a, b in pairs)
+        rel = lambda a, b: float((a.double() - b.double()).abs().max() / max(float(b.double().abs().max()), 1e-30))  # noqa: E731
+        out["losses_max_rel_diff"] = rel(got, want)
+        out["state_max_rel_diff"] = max(rel(a, b) for a, b in pairs if a.is_floating_point())
+        check(torch.isfinite(got).all() and out["losses_max_rel_diff"] <= 1e-6
+              and out["state_max_rel_diff"] <= 1e-6,
+              f"multi step against plain steps: losses {got.tolist()} vs {want.tolist()}, state "
+              f"max rel diff {out['state_max_rel_diff']:.3g}")
+        del multi
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    print(f"multi step K={k} (CUDA graph) against {2 * k} plain steps, ResNet-101 batch 12 fp32, "
+          f"deterministic cuDNN: losses bit-equal {out['losses_bit_equal']} (max rel "
+          f"{out['losses_max_rel_diff']:.3g}), parameters/BN/momentum bit-equal "
+          f"{out['state_bit_equal']} (max rel {out['state_max_rel_diff']:.3g}), K1 {launches} "
+          f"launches ({name})", flush=True)
+    del trainers, multi_t, plain_t, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    INSTRUMENTS_DIR.mkdir(parents=True, exist_ok=True)
+    bench = run_tool("train_bench_multi", train_bench.main, ["--multi", str(k), "--iters", "3"])
+    m = bench["multi"]
+    check(m["k1_launches"] == (m["iters"] + 1) * k and np.isfinite(m["losses"]).all()
+          and bench["k1_launches"] == bench["iters"] + 1,
+          f"train_bench --multi: K1 {m['k1_launches']} and {bench['k1_launches']} launches")
+    out["train_bench"] = {"multi_ms_per_step": m["ms_per_step"], "plain_ms_per_step": bench["ms_per_step"],
+                          "multi_img_per_s": m["img_per_s"], "plain_img_per_s": bench["img_per_s"],
+                          "multi_peak_gib": m["peak_gib"], "plain_peak_gib": bench["peak_gib"]}
+    print(f"train_bench --multi {k}: {m['ms_per_step']:.2f} ms/step against the plain step's "
+          f"{bench['ms_per_step']:.2f} in the same process ({name})", flush=True)
+    return out, launches + m["k1_launches"]
+
+
+def phase_tools(name: str) -> dict:
+    """Phase 28: tools.h2d_probe, tools.prewarm_cache and
+    tools.kernel_selftest at small sizes."""
+    from tinyfaces_tpu_torch.tools import h2d_probe, kernel_selftest, prewarm_cache
+
+    INSTRUMENTS_DIR.mkdir(parents=True, exist_ok=True)
+    probe = run_tool("h2d_probe", h2d_probe.main, ["--mib", "16", "--iters", "3"])
+    check(all(r["mib_per_s"] > 0 for r in probe["rows"]), "h2d_probe: a rate is not positive")
+    warm = run_tool("prewarm_cache", prewarm_cache.main, [])
+    check({r["name"] for r in warm["libraries"]} == {"dense_assignment", "tinyfaces_native", "jpeg_dct"},
+          f"prewarm_cache: {warm}")
+    selftest = run_tool("kernel_selftest", kernel_selftest.main, ["--iters", "5"])
+    check(selftest["ok"], f"kernel_selftest: {selftest}")
+    print(f"tools: h2d_probe {len(probe['rows'])} rows, pinned noise "
+          f"{probe['rows'][0]['mib_per_s']:.0f} MiB/s; prewarm_cache "
+          f"{[(r['name'], r['compiled']) for r in warm['libraries']]}; kernel_selftest PASS, "
+          f"mismatch {selftest['label_mismatch_rate']:.2e}, kernel {selftest['kernel_ms']:.3f} ms "
+          f"vs plain {selftest['plain_ms']:.3f} ms ({name})", flush=True)
+    return {"h2d_probe": probe["rows"], "prewarm_cache": warm, "kernel_selftest": selftest}
+
+
 WORKERS = {"dist_steps": worker_dist_steps, "stop": worker_stop, "eval": worker_eval}
 
 
@@ -2593,6 +2926,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", type=Path, default=None,
                     help="another checkout: its K1 is built and timed in turns with this one")
+    ap.add_argument("--spatial-only", action="store_true",
+                    help="phase 26 alone, after its set-up (phase 5's calibrated model, phase "
+                         "13's tree), e.g. over four cards")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs an NVIDIA GPU")
@@ -2616,6 +2952,18 @@ def main() -> None:
           f"compiled and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
 
     templates_np = load_templates()
+    if args.spatial_only:
+        model = init_model(TinyFacesDetector(), torch.Generator().manual_seed(0)).to(dev)
+        calibrate(model, pink_images(np.random.default_rng(5), [(192, 256), (176, 248)]), dev)
+        phase_dct_sweep_and_service(model, templates_np, load_fixtures(), dev)
+        spatial = phase_spatial(model, templates_np, dev, name)
+        print(f"phase 26 passed in {time.perf_counter() - start:.1f} s ({name})", flush=True)
+        print(json.dumps({"spatial": spatial}))
+        print(name)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return
     templates = torch.tensor(templates_np, dtype=torch.float32, device=dev)
     kres = phase_kernel(templates, dev, name, against)
     trainer, dataset, launches = phase_train(templates_np, dev, name)
@@ -2647,6 +2995,9 @@ def main() -> None:
              "yuv420": phase_yuv420(model, templates_np, dev, name),
              "jpegdct4": phase_jpegdct4(model, templates_np, fixtures, dev, name)}
     t_wires = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slice10 = {"spatial": phase_spatial(model, templates_np, dev, name)}
+    t_slice10 = time.perf_counter() - t0
     del model
     torch.cuda.empty_cache()
     train_cli_result, cli_launches, ann, train_set = phase_train_cli(templates_np, dev, name)
@@ -2662,10 +3013,15 @@ def main() -> None:
     torch.cuda.empty_cache()  # the children of phase 17 have the card to themselves
     accuracy["closed_loop"], e2e_launches = phase_closed_loop(dev, name)
     instruments, instrument_launches = phase_instruments(dev, name, dct["bf16"]["img_per_s"])
+    t0 = time.perf_counter()
+    slice10["multi"], multi_launches = phase_multi(templates_np, dev, name)
+    slice10["tools"] = phase_tools(name)
+    slice10["phases_26_28_s"] = t_slice10 + time.perf_counter() - t0
     dist_result["phases_18_21_s"] = t_dist
     print(f"phases 18-21 (multi-process training and evaluation) took {t_dist:.1f} s", flush=True)
     print(f"phases 23-25 (the folded stem, yuv420, jpegdct4) took {wires['phases_23_25_s']:.1f} s",
           flush=True)
+    print(f"phases 26-28 (spatial, multi, tools) took {slice10['phases_26_28_s']:.1f} s", flush=True)
     print(f"all phases passed in {time.perf_counter() - start:.1f} s ({name})", flush=True)
     print(json.dumps({"inference": {"card": name, "gpu_vs_cpu": vs_cpu, **full, **served}}))
     print(json.dumps({"train_cli": train_cli_result}))
@@ -2674,19 +3030,21 @@ def main() -> None:
     print(json.dumps({"distributed": dist_result}))
     print(json.dumps({"wires": wires}))
     print(json.dumps({"instruments": instruments}))
+    print(json.dumps({"spatial_multi_tools": slice10}))
     print(json.dumps({"kernels": [{
         "name": "dense_assignment_reductions",
         "route": "cuda",
         "source": "tinyfaces_tpu_torch/csrc/dense_assignment.cu",
         "replaces": "tinyfaces_tpu/ops/pallas_assignment.py:209",
         "launches": (launches + cli_launches + dct_launches + e2e_launches + group_launches
-                     + world_n_launches + stop_launches + instrument_launches + yuv_launches),
+                     + world_n_launches + stop_launches + instrument_launches + yuv_launches
+                     + multi_launches),
         "launches_by_path": {"train_epoch": launches, "train_cli": cli_launches,
                              "train_cli_jpegdct": dct_launches, "train_cli_yuv420": yuv_launches,
                              "e2e_train_yuv420": e2e_launches,
                              "train_cli_world1_group": group_launches,
                              "world_n_all_ranks_and_world1_replays": world_n_launches, "agreed_stop_all_ranks": stop_launches,
-                             "instruments": instrument_launches},
+                             "instruments": instrument_launches, "train_multi": multi_launches},
         "max_abs_err": kres["max_abs_err"],
         **kres[f"G{DetectorConfig().max_gt}"],
         "library_ms": None,  # no single PyTorch call computes it

@@ -5,10 +5,9 @@ model's `remat`, on the CPU at a tiny size.
   bench_train.make_synthetic_train_batch) bit for bit for the same seeds.
 * Each bench's CLI ends with one JSON line of exactly the JAX contract's
   four keys on every wire it takes (the pyramid's four, the train step's
-  three, whose yuv420 batches are the root bench's); `train_bench --multi`,
-  which ROADMAP item 15 holds, exits naming it, every instrument takes the
-  yuv420 and jpegdct4 wires it lists, and `--device cuda` without a card
-  exits.
+  three, whose yuv420 batches are the root bench's); `train_bench --multi`
+  and every instrument's yuv420 and jpegdct4 wires get past its checks,
+  and `--device cuda` without a card exits.
 * `remat=True` gives one Trainer.train_step's loss, gradients, parameters
   and BN running statistics of `remat=False` (rtol 1e-6; on the CPU they
   are bit-equal); under a process group of two (collectives faked in one
@@ -27,6 +26,7 @@ import torch
 
 import bench as jax_bench
 import bench_train as jax_bench_train
+from tests.test_torch_native import jax_native_library  # noqa: F401
 from tests.test_torch_trainer import CFG, TC, TINY_STAGES, _batch, _dataset, _step_draws
 from tinyfaces_tpu.config import DetectorConfig as JaxDetectorConfig
 from tinyfaces_tpu.models.detection import TinyFacesDetector as JaxDetector
@@ -111,12 +111,6 @@ def test_bench_train_prints_the_contract_line(transfer, monkeypatch, capsys):
     assert out["k1_launches"] == 0  # the CPU takes K1's twin
 
 
-def _exits_naming_item15(fn):
-    with pytest.raises(SystemExit) as e:
-        fn()
-    assert "ROADMAP item 15" in str(e.value)
-
-
 @pytest.mark.parametrize("transfer", ["yuv420", "jpegdct4"])
 def test_bench_item15_wires_exit(transfer, monkeypatch):
     """The wires ROADMAP item 15 held run now (test_bench_prints_the_
@@ -153,14 +147,12 @@ def test_bench_train_yuv420_exits(monkeypatch):
     ("eval_sweep_bench", ["--transfer", "jpegdct4"]),
 ])
 def test_tools_item15_choices_exit(tool, argv, monkeypatch):
-    """`train_bench --multi` still exits naming ROADMAP item 15; the wires
-    it held get past the tools' checks to the device (here a missing card)."""
+    """The choices ROADMAP item 15 held (`train_bench --multi`, the wires)
+    get past the tools' checks to the device (here a missing card); the
+    multi step runs in tests/test_torch_multi_step.py."""
     import importlib
 
     mod = importlib.import_module(f"tinyfaces_tpu_torch.tools.{tool}")
-    if tool == "train_bench":
-        _exits_naming_item15(lambda: mod.main(argv + ["--device", "cpu"]))
-        return
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="is_available"):
         mod.main(argv + ["--device", "cuda"])

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from tests.test_dct_train import _jpeg_roundtrip, _seeds_per_scale, _smooth_image
-from tests.test_torch_native import _assert_same
+from tests.test_torch_native import _assert_same, jax_native_library  # noqa: F401
 from tests.test_torch_wider_train import CFG, JAX_CFG
 from tinyfaces_tpu.config import DetectorConfig as JaxDetectorConfig
 from tinyfaces_tpu.data import dct_train as jax_dct

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from tests.test_torch_main import FACES, SIZES, _argv, _run
-from tests.test_torch_native import _assert_same
+from tests.test_torch_native import _assert_same, jax_native_library  # noqa: F401
 from tests.test_torch_trainer import TC, TINY_STAGES, _step_draws
 from tests.test_torch_wider_train import CFG, JAX_CFG, write_train_tree
 from tinyfaces_tpu.data import loader as jax_loader

@@ -361,8 +361,10 @@ def test_mesh_devices_and_split():
     assert mesh.split_batch(list(range(6)), 3) == [[0, 1], [2, 3], [4, 5]]
     with pytest.raises(ValueError, match="does not split"):
         mesh.split_batch(list(range(7)), 3)
-    with pytest.raises(ValueError, match="item 15"):
-        mesh.check_shard("spatial")
+    for shard in mesh.SHARD_MODES:  # spatial: tests/test_torch_spatial.py
+        mesh.check_shard(shard)
+    with pytest.raises(ValueError, match="unknown shard mode"):
+        mesh.check_shard("rows")
 
 
 def test_rank_device_wraps_over_the_cards(monkeypatch):

@@ -15,6 +15,7 @@ from PIL import Image
 import evaluate_model as jax_cli
 import wider_eval
 from tests.test_torch_evaluation import EC, PROB, TEMPLATES, detectors, shared_weights
+from tests.test_torch_native import jax_native_library  # noqa: F401
 from tinyfaces_tpu.data import WIDERFace as JaxWIDERFace
 from tinyfaces_tpu.data.wider_face import parse_wider_annotations as jax_parse
 from tinyfaces_tpu_torch import detect_image
@@ -121,11 +122,14 @@ def test_argument_surface_matches_jax(tmp_path):
         assert mine[k] == v
 
     ann = _tree(tmp_path)
-    # yuv420 and jpegdct4 run (tests/test_torch_{yuv420,jpegdct4}.py); pil needs rgb
+    # yuv420 and jpegdct4 run (tests/test_torch_{yuv420,jpegdct4}.py); pil needs rgb;
+    # spatial and auto sharding need --data-parallel (tests/test_torch_spatial.py)
     for extra, item in ((["--transfer", "jpegdct4", "--resample", "pil"], "transfer='rgb'"),
                         (["--transfer", "yuv420", "--resample", "pil"], "transfer='rgb'"),
-                        (["--resample", "pil"], "transfer='rgb'"), (["--shard", "auto"], "item 15"),
-                        (["--shard", "spatial"], "item 15"), (["--bf16", "--fp32"], "exclusive")):
+                        (["--resample", "pil"], "transfer='rgb'"),
+                        (["--shard", "auto"], "requires --data-parallel"),
+                        (["--shard", "spatial"], "requires --data-parallel"),
+                        (["--bf16", "--fp32"], "exclusive")):
         with pytest.raises(SystemExit, match=item):
             cli.main([str(ann), "--device", "cpu", *extra])
     with pytest.raises(ValueError, match="does not fit split"):

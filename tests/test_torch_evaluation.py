@@ -193,10 +193,12 @@ def test_unported_options_raise():
     for transfer in ("yuv420", "jpegdct4"):  # tests/test_torch_{yuv420,jpegdct4}.py
         assert evaluation.PyramidDetector(model, TEMPLATES, device="cpu",
                                           transfer=transfer).transfer == transfer
+    for shard in ("spatial", "auto"):  # tests/test_torch_spatial.py
+        assert evaluation.PyramidDetector(model, TEMPLATES, device=["cpu"] * 2,
+                                          shard=shard).shard == shard
     for kw, item in ((dict(transfer="yuv422"), "unknown transfer"),
                      (dict(transfer="yuv420", ec=EvalConfig(resample="pil")), "transfer='rgb'"),
-                     (dict(shard="auto"), "item 15"),
-                     (dict(shard="spatial"), "item 15"),
+                     (dict(shard="rows"), "unknown shard mode"),
                      (dict(ec=EvalConfig(resample="pil"), transfer="jpegdct"), "transfer='rgb'"),
                      (dict(ec=EvalConfig(resample="nearest")), "resample")):
         with pytest.raises(ValueError, match=item):

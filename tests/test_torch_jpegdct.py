@@ -23,6 +23,7 @@ import torch
 from PIL import Image
 
 from tests.test_jpegdct import encode, encode_jpeg_gray_dri, natural_image
+from tests.test_torch_native import jax_native_library  # noqa: F401
 from tests.torch_jpeg.make_fixtures import FIXTURE_DIR, MANIFEST, SPECS, coef_sha256
 from tinyfaces_tpu.data import jpegdct as jax_jpegdct
 from tinyfaces_tpu.ops import jpeg as jax_ops

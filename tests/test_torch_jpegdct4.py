@@ -29,6 +29,7 @@ from tests.test_torch_evaluation import (EC, PROB, SCALES, TEMPLATES, TINY, asse
                                          shared_weights)
 from tests.test_torch_jpegdct import _jpegs, _stats_delta
 from tests.test_torch_jpegdct_eval import jpegs
+from tests.test_torch_native import jax_native_library  # noqa: F401
 from tests.test_torch_yuv420 import assert_same_sweeps, assert_service_matches_detect_batch
 from tinyfaces_tpu import evaluation as jax_eval
 from tinyfaces_tpu.config import DetectorConfig

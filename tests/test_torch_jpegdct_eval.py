@@ -22,6 +22,7 @@ import wider_eval
 from tests.test_torch_evaluate_cli import _read_tree, _tree
 from tests.test_torch_evaluation import (EC, PROB, SCALES, TEMPLATES, TINY, assert_same_detections,
                                          shared_weights)
+from tests.test_torch_native import jax_native_library  # noqa: F401
 from tests.torch_jpeg.make_fixtures import FIXTURE_DIR
 from tinyfaces_tpu import evaluation as jax_eval
 from tinyfaces_tpu.config import DetectorConfig, EvalConfig

@@ -7,7 +7,20 @@ batch of each port loader (C++ engine and Python augmentation) equals the
 JAX loader's, and one train step from the first C++-engine batch matches
 the JAX train step at tests/test_torch_trainer.py's tolerances. A failed
 build raises and nothing falls back to the Python path.
+
+`jax_native_library` is the shared module fixture of every port test that
+calls into the JAX package's C++ library (native/libtinyfaces_native.so):
+it builds that library once under a file lock, through a temporary file
+moved into place, and clears the JAX loader's failure latch (see its
+docstring).
 """
+
+import ctypes
+import fcntl
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +45,58 @@ from tinyfaces_tpu_torch.models.detection import TinyFacesDetector
 from tinyfaces_tpu_torch.trainer import make_lr_schedule, make_optimizer, train_step
 from tinyfaces_tpu_torch.utils import cuda_build
 from tinyfaces_tpu_torch.utils.convert import from_jax, to_jax
+
+BUILD_LOCK = Path(__file__).resolve().parent.parent / "build" / "torch_ext" / "jax_native.lock"
+
+
+def _abi_of(path: Path):
+    """tf_version() of the library at `path`, read in a child process (no
+    handle of a partial or stale file stays mapped here), or None."""
+    probe = ("import ctypes, sys; lib = ctypes.CDLL(sys.argv[1]); "
+             "lib.tf_version.restype = ctypes.c_int; print(lib.tf_version())")
+    out = subprocess.run([sys.executable, "-c", probe, str(path)], capture_output=True,
+                         text=True, timeout=60)
+    return int(out.stdout) if out.returncode == 0 and out.stdout.strip() else None
+
+
+def build_jax_native() -> ctypes.CDLL:
+    """The JAX package's C++ library, loaded in this process.
+
+    The JAX loader (tinyfaces_tpu/data/native.py) builds the library with
+    `make -C native` in whichever process asks first, the Makefile writes
+    the .so in place, and any failure latches `_load_failed` for the rest of
+    the process. Test modules ask at import (skipif), so the pytest-xdist
+    workers of one run build it side by side, and a worker that maps a
+    half-written file latches the failure. Here the build runs under an
+    exclusive lock on a file in build/torch_ext/ (gitignored), with the
+    Makefile's own recipe and flags into a temporary target, and is moved
+    into place with os.replace, so no process ever reads a partial file
+    from this side; an existing library is kept when a child process loads
+    it with the current ABI version. Then the latch is cleared and the
+    library loaded."""
+    so = jax_native._LIB_PATH
+    BUILD_LOCK.parent.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_LOCK, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _abi_of(so) != jax_native._ABI_VERSION:
+            tmp = so.parent / f".{so.name}.{os.getpid()}.tmp"
+            try:
+                subprocess.run(["make", "-C", str(so.parent), f"TARGET={tmp.name}"], check=True,
+                               capture_output=True, timeout=600)
+                os.replace(tmp, so)
+            finally:
+                tmp.unlink(missing_ok=True)
+        if jax_native._lib is None:
+            jax_native._load_failed = False
+        assert jax_native.is_available(), "the JAX package's native library does not load"
+    return jax_native._lib
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_library():
+    """build_jax_native() before a module's tests; import it into a test
+    module to make it that module's fixture too."""
+    return build_jax_native()
 
 
 def _inputs(rng, b):
@@ -162,3 +227,30 @@ def test_unknown_target_features_raise(tmp_path, monkeypatch, script):
     with pytest.raises(RuntimeError, match="target features"):
         cuda_build.load_host_library("tinyfaces_native")
     assert not (tmp_path / "build").exists()
+
+
+def test_the_shared_build_clears_a_latched_jax_loader(tmp_path, monkeypatch):
+    """The fault build_jax_native repairs, on a copy of native/: a library
+    not yet written (as one xdist worker's `make` leaves it for another)
+    is newer than its sources, so the JAX loader's `make` does nothing, the
+    load fails and latches; build_jax_native rebuilds it through a
+    temporary file and the loader then loads it."""
+    native_dir = tmp_path / "native"
+    native_dir.mkdir()
+    for name in ("Makefile", "tinyfaces_native.cpp", "jpeg_dct.cpp"):
+        (native_dir / name).write_bytes((jax_native._NATIVE_DIR / name).read_bytes())
+    so = native_dir / jax_native._LIB_PATH.name
+    # created by the linker, nothing written yet (a file cut off inside its
+    # ELF segments can kill the process that maps it with SIGBUS instead)
+    so.write_bytes(b"")
+    monkeypatch.setattr(jax_native, "_LIB_PATH", so)
+    monkeypatch.setattr(jax_native, "_NATIVE_DIR", native_dir)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_load_failed", False)
+    monkeypatch.setattr(sys.modules[__name__], "BUILD_LOCK", tmp_path / "build" / "lock")
+    assert not jax_native.is_available()
+    assert not jax_native.is_available()  # latched: not even tried again
+    lib = build_jax_native()
+    assert jax_native.is_available() and jax_native._lib is lib
+    assert _abi_of(so) == jax_native._ABI_VERSION
+    assert not list(native_dir.glob(".*.tmp"))

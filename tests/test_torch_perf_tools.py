@@ -26,6 +26,7 @@ import torch
 
 import tools.serving_bench as jax_serving_bench
 import tools.wire_stats as jax_wire_stats
+from tests.test_torch_native import jax_native_library  # noqa: F401
 from tinyfaces_tpu_torch.tools import (device_profile, eval_sweep_bench, jpegdct_ceiling,
                                        loader_bench, pipeline_profile, profile_model,
                                        serving_bench, train_bench, wire_stats)

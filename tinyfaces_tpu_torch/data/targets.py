@@ -22,12 +22,25 @@ from tinyfaces_tpu_torch.ops.assignment import compute_pad_mask
 from tinyfaces_tpu_torch.ops.assignment_kernel import assign_targets_fused
 
 
+_constants: dict = {}
+
+
+def device_constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """`values` as a tensor on `device`, uploaded once per (values, dtype,
+    device) without a stream sync, so a caller can queue batches ahead and
+    a CUDA graph can capture the ops that read it (a capture cannot copy
+    from pageable host memory)."""
+    key = (values, dtype, torch.device(device))
+    if key not in _constants:
+        _constants[key] = torch.tensor(values, dtype=dtype).to(device, non_blocking=True)
+    return _constants[key]
+
+
 def normalize_images(images_u8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """uint8 (B, H, W, 3) -> normalized float (ToTensor + ImageNet Normalize,
     reference main.py:44-46)."""
-    # Uploaded without a stream sync, so a caller can queue batches ahead.
-    mean = torch.tensor(IMAGENET_MEAN, dtype=dtype).to(images_u8.device, non_blocking=True)
-    std = torch.tensor(IMAGENET_STD, dtype=dtype).to(images_u8.device, non_blocking=True)
+    mean = device_constant(IMAGENET_MEAN, dtype, images_u8.device)
+    std = device_constant(IMAGENET_STD, dtype, images_u8.device)
     x = images_u8.to(dtype) / 255.0
     return (x - mean) / std
 
@@ -95,8 +108,8 @@ def yuv420_to_normalized(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     g = yf - 0.344136 * uf - 0.714136 * vf
     b = yf + 1.772 * uf
     x = (torch.stack([r, g, b], dim=-1) / 255.0).clamp_(0.0, 1.0)
-    mean = torch.tensor(IMAGENET_MEAN, dtype=dtype).to(y.device, non_blocking=True)
-    std = torch.tensor(IMAGENET_STD, dtype=dtype).to(y.device, non_blocking=True)
+    mean = device_constant(IMAGENET_MEAN, dtype, y.device)
+    std = device_constant(IMAGENET_STD, dtype, y.device)
     return (x - mean) / std
 
 
@@ -205,11 +218,12 @@ def build_targets(
     cfg: DetectorConfig,
     noise_tensor: torch.Tensor | None = None,
     part: tuple[int, int] = (0, 1),
+    seed: torch.Tensor | None = None,
 ):
     """Returns (images (B,H,W,3), class_maps (B,Y,X,T), regress_maps
-    (B,Y,X,4T)). `noise_tensor` replaces the tie-break draws (CPU only).
-    `part` = (rank, world) of a batch that is one rank's rows
-    (assign_targets_fused)."""
+    (B,Y,X,4T)). `noise_tensor` replaces the tie-break draws (CPU only),
+    `seed` K1's per-image seeds. `part` = (rank, world) of a batch that is
+    one rank's rows (assign_targets_fused)."""
     vsy, vsx = cfg.heatmap_size
     ofy, ofx = cfg.rf.offset
     sty, stx = cfg.rf.stride
@@ -229,6 +243,6 @@ def build_targets(
     cls_maps, reg_maps = assign_targets_fused(
         batch["gt_boxes"], batch["gt_valid"], pad_masks, templates, generator,
         pos_thresh=cfg.pos_thresh, neg_thresh=cfg.neg_thresh,
-        noise_tensor=noise_tensor, part=part, **rf,
+        noise_tensor=noise_tensor, part=part, seed=seed, **rf,
     )
     return images, cls_maps, reg_maps

@@ -24,9 +24,12 @@ Across processes and cards, as in the JAX CLI:
     one model replica each: every card of `--device cuda` in one process,
     the rank's own card (r % cards) under N > 1. `--eval-batch` must
     divide over them.
-`--shard spatial|auto` exits naming ROADMAP item 15. `--device` (default
-cuda) is the port's own flag; nothing falls back to the CPU when there is
-no GPU.
+  * `--shard spatial` (with `--data-parallel`) splits each image's rows
+    over those cards instead (parallel/spatial.py): any `--eval-batch`
+    goes; `--shard auto` is spatial for a batch smaller than the card
+    count, batch otherwise.
+`--device` (default cuda) is the port's own flag; nothing falls back to the
+CPU when there is no GPU.
 """
 
 from __future__ import annotations
@@ -119,8 +122,10 @@ def arguments(argv=None):
                              "images rank::world")
     parser.add_argument("--process-id", default=0, type=int)
     parser.add_argument("--shard", default="batch", choices=("batch", "spatial", "auto"),
-                        help="sharding mode with --data-parallel: batch; spatial and auto are "
-                             "not ported (ROADMAP item 15)")
+                        help="sharding mode with --data-parallel: batch = one group of images "
+                             "per card (throughput); spatial = each image's rows split over "
+                             "the cards (single-image latency on huge inputs); auto = spatial "
+                             "when the batch is smaller than the card count")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (cuda, cuda:N or cpu)")
     return parser.parse_args(argv)
@@ -140,10 +145,14 @@ def run(detector, dataset, prob_thresh, nms_thresh, split, results_dir=None,
     `rank`/`world`: this process detects images `rank::world` only; the
     per-image result files are disjoint, so all ranks may share one
     results_dir. A detector over several devices takes batches that are
-    a multiple of their count. The phase summary goes to stderr and
+    a multiple of their count, unless it splits images by rows
+    (shard="spatial"). The phase summary goes to stderr and
     `run.last_phases`."""
     indices = list(range(len(dataset)))[rank::world]
-    n_dev = len(detector.devices)
+    # Batch-axis divisibility only binds under batch sharding; spatial
+    # splits rows, so any batch size (1 too) is valid. ("auto" keeps the
+    # divisible batches, as the JAX CLI does.)
+    n_dev = len(detector.devices) if detector.shard != "spatial" else 1
     n = len(indices)
     done = 0
     dets = None
@@ -282,8 +291,9 @@ def _refusal(args) -> str | None:
     if args.resample == "pil" and args.transfer != "rgb":
         return ("resample='pil' reproduces the reference's uint8-domain resampling and needs "
                 "exact pixels on device — use transfer='rgb' (lossy wires defeat the parity point)")
-    if args.shard != "batch":
-        return f"--shard {args.shard} (spatial sharding) is not ported: ROADMAP item 15"
+    if args.shard != "batch" and not args.data_parallel:
+        return (f"--shard {args.shard} requires --data-parallel (without a device mesh there "
+                f"is nothing to shard over)")
     return None
 
 
@@ -308,7 +318,7 @@ def main(argv=None):
         # under N processes each rank splits over its own card only
         devices = ([rank_device(args.device, args.process_id)] if world > 1
                    else local_devices(args.device))
-        if args.eval_batch % len(devices):
+        if args.shard == "batch" and args.eval_batch % len(devices):
             raise SystemExit(f"--data-parallel needs --eval-batch divisible by the "
                              f"{len(devices)} devices")
     if args.coordinator_address:
@@ -322,7 +332,7 @@ def main(argv=None):
     detector = PyramidDetector(model, templates, cfg=cfg,
                                ec=EvalConfig(resample=args.resample,
                                              template_pruning=args.template_pruning),
-                               device=devices, transfer=args.transfer)
+                               device=devices, transfer=args.transfer, shard=args.shard)
     run(detector, dataset, args.prob_thresh, args.nms_thresh, args.split,
         results_dir=args.results_dir, debug=args.debug, eval_batch=args.eval_batch,
         host_resize=args.host_resize, workers=args.workers, rank=args.process_id,

@@ -24,19 +24,22 @@ reference's uint8 PIL bilinear, ops/pilresize.py: each level resized in
 pixel space in float64, byte-equal to the host oracle, then normalized;
 `rgb` wire only).
 
-`device=` a list of cards runs the pyramid data-parallel (the JAX
-package's batch-sharded mesh): one model replica per card, each fused batch
+`device=` a list of cards runs the pyramid over them (the JAX package's
+mesh), one model replica per entry. `shard="batch"` (the default) is data-parallel: each fused batch
 split into equal contiguous pieces, every piece dispatched before any is
-waited for, and the results gathered in order.
+waited for, and the results gathered in order. `shard="spatial"` splits
+each level's forward over the cards by rows (parallel/spatial.py): the
+first card produces the normalized canvas (unpack, resize or the `pil`
+path) and every level's input, including the folded stem's output (conv1's
+rows, computed whole on the first card and then sliced); the score maps
+come back to it for decode and NMS. `shard="auto"` is spatial for a batch
+smaller than the card count and batch otherwise (spatial.choose_mode).
 
 `EvalConfig.fold_stem` (the default, as in the JAX package) folds the 2x
 level's exact-2.0 upsample into conv1 (ops/stemfold.py): the stem runs at
 1x on the unpacked canvas and the (B, 3, 2H, 2W) canvas is never made; the
 trace's "resize 1" phase then holds the folded stem. `fold_stem=False`
 resizes and then convolves, as does `resample="pil"`.
-
-Not ported (raises, naming ROADMAP item 15): spatial sharding
-(`shard="spatial"|"auto"`).
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ from tinyfaces_tpu_torch.ops.pilresize import max_taps, resize_pil_batch
 from tinyfaces_tpu_torch.ops.resize import resize_batch
 from tinyfaces_tpu_torch.ops.stemfold import folded_stem_2x
 from tinyfaces_tpu_torch.parallel.mesh import check_shard, split_batch
+from tinyfaces_tpu_torch.parallel.spatial import choose_mode, spatial_forward
 from tinyfaces_tpu_torch.utils.convert import from_npz, from_reference_pth
 
 TRANSFERS = ("rgb", "yuv420", "jpegdct", "jpegdct4")
@@ -193,9 +197,10 @@ class Replica(NamedTuple):
 
 
 class PyramidDetector:
-    """Multi-scale detector over one device, or data-parallel when
-    `device` is a list of devices (one replica each; a batch must split
-    evenly over them).
+    """Multi-scale detector over one device, or over a list of devices
+    (one replica each): data-parallel under `shard="batch"` (a batch must
+    split evenly over them), one image's rows split over them under
+    "spatial", either by batch size under "auto".
 
     `trace`: set to a list to record, on a GPU, one (phase, CUDA event) pair
     after each phase of every batch — "upload", "unpack" (the normalized
@@ -233,6 +238,7 @@ class PyramidDetector:
                 "transfer='rgb' (lossy wires defeat the parity point)")
         self.dtype = model.dtype or torch.float32
         self.templates = np.asarray(templates, np.float64)
+        self.shard = shard
         models = [model] + [copy.deepcopy(model) for _ in devices[1:]]
         self.replicas = [
             Replica(d, m.to(d).eval(), torch.tensor(self.templates, dtype=torch.float32, device=d), {})
@@ -390,11 +396,19 @@ class PyramidDetector:
         meta_t = torch.from_numpy(meta)
         if self._pinned():
             meta_t = meta_t.pin_memory()
-        pieces = [slice(r.start, r.stop) for r in split_batch(range(b), len(self.replicas))]
+        replicas, forward = self.replicas, None
+        if choose_mode(len(replicas), b, self.shard) == "spatial":
+            # the whole batch on the first card, each level's forward split by rows
+            models = [r.model for r in replicas]
+            replicas = replicas[:1]
+
+            def forward(replica, x, fold):
+                return spatial_forward(models, x, stem_precomputed=fold)
+        pieces = [slice(r.start, r.stop) for r in split_batch(range(b), len(replicas))]
         # the trace follows the first device's piece
         marks = [self._mark] + [lambda phase: None] * (len(pieces) - 1)
         outs = []
-        for replica, rows, mark in zip(self.replicas, pieces, marks):
+        for replica, rows, mark in zip(replicas, pieces, marks):
             with self._on(replica):
                 taps = (self._pil_taps(meta[rows], scales, packed.h0p, packed.w0p)
                         if self.ec.resample == "pil" else None)
@@ -404,18 +418,24 @@ class PyramidDetector:
                 outs.append(self._fused_pyramid(
                     replica, images_d, meta_d[:, :2], meta_d[:, 2:].reshape(-1, len(scales), 2),
                     scales=scales, h0p=packed.h0p, w0p=packed.w0p, prob_thresh=float(prob_thresh),
-                    nms_thresh=float(nms_thresh), pil_taps=taps, mark=mark))
+                    nms_thresh=float(nms_thresh), pil_taps=taps, mark=mark, forward=forward))
         if not self._pinned():
             return DeviceResult(torch.cat(outs), ())
         host = torch.empty((b, *outs[0].shape[1:]), dtype=outs[0].dtype, pin_memory=True)
         events = []
-        for replica, rows, mark, out in zip(self.replicas, pieces, marks, outs):
+        for replica, rows, mark, out in zip(replicas, pieces, marks, outs):
             with self._on(replica):
                 host[rows].copy_(out, non_blocking=True)
                 mark("d2h")
                 events.append(torch.cuda.Event())
                 events[-1].record()
         return DeviceResult(host, tuple(events))
+
+    @staticmethod
+    def _replica_forward(replica: Replica, x: torch.Tensor, fold: bool) -> torch.Tensor:
+        """The replica's model on an NCHW level input (conv1's output when
+        `fold`)."""
+        return replica.model(x if fold else x.permute(0, 2, 3, 1), stem_precomputed=fold)
 
     @staticmethod
     def _on(replica: Replica):
@@ -445,13 +465,16 @@ class PyramidDetector:
 
     def _fused_pyramid(self, replica: Replica, images, size_hw, level_hw, *, scales: tuple,
                        h0p: int, w0p: int, prob_thresh: float, nms_thresh: float,
-                       mark, pil_taps=None) -> torch.Tensor:
+                       mark, forward=None, pil_taps=None) -> torch.Tensor:
         """Whole pyramid for one batch on `replica`: the normalized canvas from any
         wire, resize of every level (the 2x level's folded into conv1 under
         fold_stem), forward, decode, then one cross-scale NMS per image.
         With resample="pil" the canvas stays in pixels: each level is
         resized on the uint8 grid, then normalized. `mark(phase)` records
-        the trace's events."""
+        the trace's events; `forward(replica, x, fold)` runs the model on
+        the NCHW level input (conv1's output when `fold`), by default the
+        replica's own (_replica_forward)."""
+        forward = forward or self._replica_forward
         pil = self.ec.resample == "pil"
         if pil:
             # PIL's uint8 rounding does not commute with normalization.
@@ -490,7 +513,7 @@ class PyramidDetector:
             else:
                 xs = resize_batch(x0, (thp, twp), size_hw, level)
             mark(f"resize {s}")
-            out = replica.model(xs if fold else xs.permute(0, 2, 3, 1), stem_precomputed=fold)
+            out = forward(replica, xs, fold)
             mark(f"forward {s}")
             # three stride-2 stages: ceil(valid / 8) heatmap rows/cols
             hm = torch.div(level + st - 1, st, rounding_mode="floor")

@@ -80,11 +80,13 @@ def compose_targets(
     # --- Classification map ---------------------------------------------
     # Forced positives: set (not accumulate) True at each forcing GT's best
     # anchor, so GTs sharing an anchor OR together deterministically.
+    # A GT that forces nothing writes to a spare column, so the scatter has
+    # a fixed shape and never waits on the host (CUDA-graph capturable).
+    n = vsy * vsx * nt
     force = (pgt_max > neg_thresh) & gt_valid  # (B, G)
-    rows = torch.arange(b, device=dev)[:, None].expand_as(force)
-    best_anchor = torch.zeros(b, vsy * vsx * nt, dtype=torch.bool, device=dev)
-    best_anchor[rows[force], pgt_idx[force].long()] = True
-    best_anchor = best_anchor.view(b, vsy, vsx, nt)
+    idx = torch.where(force, pgt_idx.long(), n)
+    best_anchor = torch.zeros(b, n + 1, dtype=torch.bool, device=dev).scatter_(1, idx, True)
+    best_anchor = best_anchor[:, :n].reshape(b, vsy, vsx, nt)
 
     class_map = torch.where(best_anchor, 1.0, -1.0)
     class_map = torch.maximum(class_map, (best_iou >= pos_thresh) * 2.0 - 1.0)

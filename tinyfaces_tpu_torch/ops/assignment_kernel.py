@@ -35,8 +35,12 @@ MAX_GT = 512  # shared-memory bound of the kernel
 NOISE_SCALE = 1e-6
 
 # Number of kernel launches in this process; a run reads it to show that the
-# main path went through the kernel.
+# main path went through the kernel. A launch made while a CUDA graph is
+# being captured only records the kernel into the graph: it counts in
+# `captured_count`, and each replay of that graph counts its launches
+# (`count_replay`).
 launch_count = 0
+captured_count = 0
 
 _fn = None
 
@@ -148,8 +152,19 @@ def _launch(gt_boxes, gt_valid, templates, seed, *, vsx, vsy, ofx, ofy, stx, sty
         )
     if err != 0:
         raise RuntimeError(f"dense_assignment kernel launch failed: cudaError {err}")
-    launch_count += 1
+    if torch.cuda.is_current_stream_capturing():
+        global captured_count
+        captured_count += 1
+    else:
+        launch_count += 1
     return best_iou, best_gt, pgt_max, pgt_idx
+
+
+def count_replay(launches: int) -> None:
+    """A replay of a CUDA graph that holds `launches` recorded launches of
+    the kernel has run them."""
+    global launch_count
+    launch_count += launches
 
 
 def perturbed_iou(
@@ -232,6 +247,14 @@ def drop_degenerate(gt_boxes: torch.Tensor, gt_valid: torch.Tensor) -> torch.Ten
     return gt_valid.to(torch.bool) & ~degenerate
 
 
+def draw_seeds(generator: torch.Generator | None, n: int, device: torch.device) -> torch.Tensor:
+    """K1's (n,) int32 per-image noise seeds from `generator` (on its
+    device, or `device` without one)."""
+    gen_dev = generator.device if generator is not None else device
+    return torch.randint(0, 2**31 - 1, (n,), generator=generator, device=gen_dev,
+                         dtype=torch.int32)
+
+
 def assign_targets_fused(
     gt_boxes: torch.Tensor,  # (B, G, 4)
     gt_valid: torch.Tensor,  # (B, G) bool
@@ -248,21 +271,22 @@ def assign_targets_fused(
     noise: bool = True,
     noise_tensor: torch.Tensor | None = None,
     part: tuple[int, int] = (0, 1),
+    seed: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Class and regression maps for a batch; the reductions run on the
     tensors' device (kernel on CUDA, twin on CPU). Per-image noise seeds
-    are drawn from `generator`. `part` = (rank, world): the batch is rank's
-    rows of a global batch of world * B, so the seeds are drawn for the
-    global batch and rank's rows kept, as world 1 draws them. Returns
-    (class_map, regress_map)."""
+    are drawn from `generator` (draw_seeds), or given as `seed` (B,) int32.
+    `part` = (rank, world): the batch is rank's rows of a global batch of
+    world * B, so the seeds are drawn for the global batch and rank's rows
+    kept, as world 1 draws them. Returns (class_map, regress_map)."""
     b = gt_boxes.shape[0]
     vsy, vsx = pad_mask.shape[1:3]
     gt_boxes = gt_boxes.to(torch.float32)
     gt_valid = drop_degenerate(gt_boxes, gt_valid)
-    gen_dev = generator.device if generator is not None else gt_boxes.device
-    r, w = part
-    seed = torch.randint(0, 2**31 - 1, (w * b,), generator=generator, device=gen_dev,
-                         dtype=torch.int32)[r * b:(r + 1) * b].to(gt_boxes.device)
+    if seed is None:
+        r, w = part
+        seed = draw_seeds(generator, w * b, gt_boxes.device)[r * b:(r + 1) * b]
+    seed = seed.to(gt_boxes.device)
     rf = dict(ofx=ofx, ofy=ofy, stx=stx, sty=sty)
     reductions = dense_assignment_reductions(
         gt_boxes, gt_valid, templates, seed, vsx=vsx, vsy=vsy,

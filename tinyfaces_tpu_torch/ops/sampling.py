@@ -43,6 +43,14 @@ def _keep_random_k(candidates: torch.Tensor, k: int, u: torch.Tensor) -> torch.T
     return candidates & (ranked <= kth_val)
 
 
+def draw_uniforms(generator: torch.Generator | None, rows: int, n: int,
+                  device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (pos, neg) balance-sampling uniforms, each (rows, n), from
+    `generator` (on its device, or `device` without one)."""
+    gen_dev = generator.device if generator is not None else device
+    return tuple(torch.rand((rows, n), generator=generator, device=gen_dev) for _ in range(2))
+
+
 def balance_sample_batch(
     class_map: torch.Tensor,  # (B, ...) labels in {-1, 0, +1}
     generator: torch.Generator | None = None,
@@ -60,12 +68,9 @@ def balance_sample_batch(
 
     flat = class_map.reshape(class_map.shape[0], -1)
     if uniforms is None:
-        gen_dev = generator.device if generator is not None else flat.device
         (r, w), b = part, flat.shape[0]
-        uniforms = tuple(
-            torch.rand((w * b, flat.shape[1]), generator=generator,
-                       device=gen_dev)[r * b:(r + 1) * b].to(flat.device)
-            for _ in range(2))
+        uniforms = tuple(u[r * b:(r + 1) * b]
+                         for u in draw_uniforms(generator, w * b, flat.shape[1], flat.device))
     pos_u, neg_u = (u.to(flat.device, flat.dtype) for u in uniforms)
 
     pos = flat == 1.0

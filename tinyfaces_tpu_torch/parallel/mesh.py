@@ -4,9 +4,8 @@ tinyfaces_tpu/parallel/mesh.py).
 The JAX package meshes over its chips and lets XLA shard the batch. Here a
 training rank owns one card (`rank_device`), and a multi-card evaluation
 keeps one model replica per card and splits each fused batch over them
-(`split_batch`, evaluation.PyramidDetector(device=[...])). Spatial sharding
-of one image over several chips (`--shard spatial|auto`,
-tinyfaces_tpu/parallel/spatial.py) is ROADMAP item 15.
+(`split_batch`, evaluation.PyramidDetector(device=[...])), or splits one
+image's rows over them (`shard="spatial"`, parallel/spatial.py).
 """
 
 from __future__ import annotations
@@ -19,11 +18,8 @@ SHARD_MODES = ("batch", "spatial", "auto")
 
 
 def check_shard(shard: str) -> None:
-    """Only batch sharding is ported."""
     if shard not in SHARD_MODES:
         raise ValueError(f"unknown shard mode {shard!r}")
-    if shard != "batch":
-        raise ValueError(f"shard={shard!r} (spatial sharding) is not ported: ROADMAP item 15")
 
 
 def rank_device(device: torch.device | str, rank: int) -> torch.device:

@@ -11,9 +11,12 @@ the timed loop, at the reference batch size. Prints ms/step and img/s.
 `--remat` recomputes each bottleneck in the backward pass (the model's
 `remat`). `--fast-precision` lets the fp32 convolutions and matmuls run in
 TF32, the card's counterpart of the TPU's single-pass bf16 MXU; without
-it, fp32 means fp32. `--multi K` ran K steps in one TPU dispatch to hide
-the remote link's dispatch latency; it exits naming ROADMAP item 15,
-where CUDA-graph capture is its possible counterpart.
+it, fp32 means fp32. `--multi K` runs K steps per call of
+`trainer.make_multi_train_step` (on a card, replays of one captured CUDA
+graph of the step; the JAX tool's lax.scan over K stacked batches), each
+call on K fresh host batches stacked and uploaded inside the timed loop,
+prints the JAX tool's `train_step[... scan xK]` line, then times the plain
+step the same way on the same card and prints its line too.
 """
 
 from __future__ import annotations
@@ -61,6 +64,47 @@ def run(trainer, make_batch: Callable[[], dict], iters: int) -> dict:
             "k1_launches": assignment_kernel.launch_count - launches0, "peak_gib": peak_gib(dev)}
 
 
+def run_multi(trainer, make_batch: Callable[[], dict], k: int, iters: int) -> dict:
+    """One warm-up call (on a card the warm-up step and the graph capture),
+    then `iters` timed calls of K steps each, every call on K fresh host
+    batches stacked on a leading axis and uploaded inside the loop; the
+    device is synchronised before the clock stops. Returns the rates per
+    step, every step's loss, K1's launches in all of them and the peak
+    memory of the whole run (the capture's pool included)."""
+    from tinyfaces_tpu_torch.ops import assignment_kernel
+    from tinyfaces_tpu_torch.trainer import make_multi_train_step
+    from tinyfaces_tpu_torch.utils.instruments import peak_gib, reset_peak, sync
+
+    dev = torch.device(trainer.device)
+    multi = make_multi_train_step(trainer.model, trainer.opt, trainer.cfg, trainer.templates_t,
+                                  trainer.schedule)
+
+    def call():
+        batches = [make_batch() for _ in range(k)]
+        host = pinned({n: np.stack([b[n] for b in batches]) for n in batches[0]}, dev)
+        lbs = multi({n: v.to(dev, non_blocking=True) for n, v in host.items()}, trainer.seed,
+                    trainer.step)
+        trainer.step += k
+        return lbs.total
+
+    launches0 = assignment_kernel.launch_count
+    # the graph's memory pool is allocated by the capture in the first call
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    losses = [call()]
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        losses.append(call())
+    sync(dev)
+    dt = (time.perf_counter() - t0) / (iters * k)
+    batch = trainer.tc.batch_size
+    return {"first_call_s": first_s, "ms_per_step": 1e3 * dt, "img_per_s": batch / dt,
+            "losses": [float(x) for x in torch.cat(losses)], "iters": iters, "k": k,
+            "batch": batch, "k1_launches": assignment_kernel.launch_count - launches0,
+            "peak_gib": peak_gib(dev)}
+
+
 def main(argv=None, *, stage_sizes: Sequence[int] = RESNET101_STAGES) -> dict:
     """The CLI; `stage_sizes` is the published ResNet-101, only tests
     shrink it."""
@@ -70,7 +114,8 @@ def main(argv=None, *, stage_sizes: Sequence[int] = RESNET101_STAGES) -> dict:
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--multi", type=int, default=0,
-                    help="K>0: K steps per dispatch (not ported: ROADMAP item 15)")
+                    help="K>0: K steps per call of make_multi_train_step (one captured CUDA "
+                         "graph on a card), then the plain step for comparison")
     ap.add_argument("--fast-precision", action="store_true",
                     help="TF32 for the fp32 convolutions and matmuls")
     ap.add_argument("--device", default="cuda", help="torch device (cuda, cuda:N or cpu)")
@@ -80,11 +125,8 @@ def main(argv=None, *, stage_sizes: Sequence[int] = RESNET101_STAGES) -> dict:
     from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
     from tinyfaces_tpu_torch.tools.profile_model import achieved, train_step_flops
     from tinyfaces_tpu_torch.trainer import Trainer
-    from tinyfaces_tpu_torch.utils.instruments import (card, device_name, resolve_device,
-                                                       unported)
+    from tinyfaces_tpu_torch.utils.instruments import card, device_name, resolve_device
 
-    if args.multi > 0:
-        raise unported("--multi (K steps per dispatch; CUDA-graph capture is its counterpart)")
     dev = resolve_device(args.device)
     tf32 = args.bf16 or args.fast_precision
     torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -97,11 +139,23 @@ def main(argv=None, *, stage_sizes: Sequence[int] = RESNET101_STAGES) -> dict:
                       templates=load_templates(), device=dev)
     trainer.setup(steps_per_epoch=1000)
     rng = np.random.default_rng(0)
-    out = run(trainer, lambda: make_synthetic_train_batch(rng, args.batch, cfg), args.iters)
     kind = "bf16" if args.bf16 else ("tf32" if args.fast_precision else "fp32")
+    multi = None
+    if args.multi > 0:
+        multi = run_multi(trainer, lambda: make_synthetic_train_batch(rng, args.batch, cfg),
+                          args.multi, args.iters)
+        print(f"first call (warm-up step, capture, {args.multi - 1} replays) "
+              f"{multi['first_call_s']:.1f} s")
+        print(f"train_step[{kind} scan x{args.multi}] batch={args.batch}: "
+              f"{multi['ms_per_step']:.1f} ms/step, {multi['img_per_s']:.2f} images/sec/chip; "
+              f"kernel launches: dense_assignment_reductions {multi['k1_launches']} in "
+              f"{(args.iters + 1) * args.multi} steps ({card(dev)})")
+    out = run(trainer, lambda: make_synthetic_train_batch(rng, args.batch, cfg), args.iters)
     flops = train_step_flops(args.batch, cfg.input_size, stage_sizes) / args.batch
     out.update(card=card(dev), dtype=kind, remat=args.remat, flops_per_image=flops,
                **achieved(flops, out["img_per_s"], device_name(dev), kind))
+    if multi is not None:
+        out["multi"] = multi
     print(f"first step {out['first_step_s']:.1f} s, loss {out['losses'][0]:.1f}")
     print(f"train_step[{kind}{'+remat' if args.remat else ''}] batch={args.batch}: "
           f"{out['ms_per_step']:.1f} ms/step, {out['img_per_s']:.2f} images/sec/chip, "

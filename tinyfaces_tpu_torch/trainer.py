@@ -53,6 +53,9 @@ from tinyfaces_tpu_torch.data.loader import NativePrefetchLoader, PrefetchLoader
 from tinyfaces_tpu_torch.data.targets import build_targets
 from tinyfaces_tpu_torch.loss import AvgMeter, LossBreakdown, detection_loss
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector
+from tinyfaces_tpu_torch.ops import assignment_kernel
+from tinyfaces_tpu_torch.ops.assignment_kernel import draw_seeds
+from tinyfaces_tpu_torch.ops.sampling import draw_uniforms
 from tinyfaces_tpu_torch.parallel import distributed
 from tinyfaces_tpu_torch.parallel.mesh import rank_device
 from tinyfaces_tpu_torch.utils.metrics_log import MetricsLogger
@@ -86,6 +89,22 @@ def make_optimizer(model: TinyFacesDetector, tc: TrainConfig) -> torch.optim.SGD
                            weight_decay=tc.weight_decay)
 
 
+def step_generator(seed: int, step: int, device: torch.device | str) -> torch.Generator:
+    """The generator of step `step`'s draws in a run seeded with `seed`."""
+    s = np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(s))
+
+
+def step_draws(generator: torch.Generator, rows: int, n_anchors: int) -> dict:
+    """The draws train_step makes from `generator`, in its order, for a
+    batch of `rows` images of `n_anchors` anchors: K1's per-image seeds
+    ("seeds", assign_targets_fused), then the balance-sampling uniforms
+    ("uniforms", balance_sample_batch). On the generator's device."""
+    dev = generator.device
+    return {"seeds": draw_seeds(generator, rows, dev),
+            "uniforms": draw_uniforms(generator, rows, n_anchors, dev)}
+
+
 def train_step(
     model: TinyFacesDetector,
     opt: torch.optim.SGD,
@@ -104,21 +123,31 @@ def train_step(
     step's parameters, momentum and BN statistics are restored on the device
     (no host sync) and the reported total is NaN, as in the JAX package.
     `draws` replaces the step's random draws (tests feed JAX's): "noise" is
-    the (B,Y,X,T,G) tie-break perturbation, "uniforms" the (pos, neg)
-    balance-sampling uniforms, each (B, Y*X*T), all for the global batch.
+    the (B,Y,X,T,G) tie-break perturbation (the CPU twin's), "seeds" K1's
+    (B,) int32 per-image seeds, "uniforms" the (pos, neg) balance-sampling
+    uniforms, each (B, Y*X*T), all for the global batch.
 
     Under a process group of N ranks `batch` is this rank's rows of the
     global batch, the draws are made (or taken) for the global batch and
     this rank's rows kept, the gradients are all-reduced with SUM before
     the update, and the returned losses are the global batch's."""
+    opt.zero_grad(set_to_none=True)
+    return _step_body(model, opt, batch, generator, cfg=cfg, templates=templates, lr=lr,
+                      nan_guard=nan_guard, draws=draws)
+
+
+def _step_body(model, opt, batch, generator, *, cfg, templates, lr, nan_guard, draws):
+    """train_step after zero_grad: the gradients are None on entry, so the
+    backward pass writes them afresh (what a CUDA graph captures)."""
     part = (distributed.rank(), distributed.world())
     b = batch["gt_boxes"].shape[0]
     rows = slice(part[0] * b, (part[0] + 1) * b)
     draws = draws or {}
-    noise = draws.get("noise")
-    uniforms = draws.get("uniforms")
+    noise, seeds, uniforms = draws.get("noise"), draws.get("seeds"), draws.get("uniforms")
     if noise is not None:
         noise = noise[rows]
+    if seeds is not None:
+        seeds = seeds[rows]
     if uniforms is not None:
         uniforms = tuple(u[rows] for u in uniforms)
     model.train()
@@ -130,7 +159,7 @@ def train_step(
         old_momentum = [None if m is None else m.clone() for m in old_momentum]
 
     images, cls_maps, reg_maps = build_targets(batch, templates, generator, cfg,
-                                               noise_tensor=noise, part=part)
+                                               noise_tensor=noise, part=part, seed=seeds)
     out = model(images)
     lb = detection_loss(
         out, cls_maps, reg_maps, generator,
@@ -138,7 +167,6 @@ def train_step(
         sample_size=cfg.sample_size, hard_neg_thresh=cfg.hard_neg_loss_thresh,
         uniforms=uniforms, part=part,
     )
-    opt.zero_grad(set_to_none=True)
     lb.total.backward()
     lb = LossBreakdown(*(x.detach() for x in lb))
     if part[1] > 1:
@@ -166,6 +194,111 @@ def train_step(
                 buf.copy_(torch.where(ok, buf, 0.0 if old is None else old))
             lb = lb._replace(total=torch.where(ok, lb.total, torch.nan))
     return lb
+
+
+class _Captured:
+    """One train step captured into a CUDA graph, over static buffers: the
+    batch, K1's seeds and the sampling uniforms are copied in before each
+    replay, the losses read out after it."""
+
+    def __init__(self, model, opt, batch: dict, draws: dict, *, cfg, templates, lr: float):
+        self.batch = {k: torch.empty_like(v) for k, v in batch.items()}
+        self.draws = {"seeds": torch.empty_like(draws["seeds"]),
+                      "uniforms": tuple(torch.empty_like(u) for u in draws["uniforms"])}
+        self.key = self.key_of(batch, lr)
+        # The backward pass must allocate the gradients inside the graph's
+        # memory pool, so they are None when the capture starts.
+        opt.zero_grad(set_to_none=True)
+        captured = assignment_kernel.captured_count
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.losses = _step_body(model, opt, self.batch, None, cfg=cfg, templates=templates,
+                                     lr=lr, nan_guard=False, draws=self.draws)
+        self.k1_launches = assignment_kernel.captured_count - captured
+
+    @staticmethod
+    def key_of(batch: dict, lr: float) -> tuple:
+        return lr, tuple((k, v.shape, v.dtype) for k, v in sorted(batch.items()))
+
+    def replay(self, batch: dict, draws: dict) -> torch.Tensor:
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+        self.draws["seeds"].copy_(draws["seeds"])
+        for static, u in zip(self.draws["uniforms"], draws["uniforms"]):
+            static.copy_(u)
+        self.graph.replay()
+        assignment_kernel.count_replay(self.k1_launches)
+        return torch.stack(list(self.losses))
+
+
+def make_multi_train_step(model: TinyFacesDetector, opt: torch.optim.SGD, cfg: DetectorConfig,
+                          templates: torch.Tensor, schedule: Callable[[int], float]) -> Callable:
+    """K optimizer steps per call, the counterpart of the JAX package's
+    make_multi_train_step (lax.scan over stacked batches in one dispatch).
+
+    Returns `multi(batches, seed, step, draws=None) -> LossBreakdown` with
+    (K,) leaves: `batches` holds the K steps' batches stacked on a leading
+    axis, step `step + k` runs at learning rate `schedule(step + k)` with
+    the draws train_step makes from `step_generator(seed, step + k)` (as
+    Trainer's steps draw them), or with `draws[k]` (tests feed JAX's). The
+    K steps equal K calls of train_step.
+
+    On the CPU it is a plain loop of train_step. On CUDA the step is
+    captured into one CUDA graph after a warm-up step (the first step of the
+    first call, run eagerly on a side stream), and each step is a replay:
+    the batch and the step's draws, made outside the graph from the step's
+    generator, are copied into the graph's static buffers first. The
+    learning rate stays a Python float in the optimizer, baked into the
+    graph: torch's SGD applies it as `add_(grad, alpha=-lr)`, and a tensor
+    rate would take another rounding path, so one graph is captured per
+    rate of the staircase schedule (and per batch shape). A capture that
+    fails raises; nothing falls back to the plain loop on CUDA. One process
+    only: a process group is refused."""
+    state: dict = {"graph": None}
+
+    def multi(batches: dict, seed: int, step: int, draws: Optional[list] = None) -> LossBreakdown:
+        if distributed.world() > 1:
+            raise ValueError("make_multi_train_step runs one process (the JAX tool runs it on "
+                             f"one device); this process group has {distributed.world()} ranks")
+        k_steps = batches["gt_boxes"].shape[0]
+        dev = batches["gt_boxes"].device
+        out = []
+        for k in range(k_steps):
+            batch = {name: v[k] for name, v in batches.items()}
+            gen = step_generator(seed, step + k, dev)
+            lr = schedule(step + k)
+            if dev.type != "cuda":
+                out.append(torch.stack(list(train_step(
+                    model, opt, batch, gen, cfg=cfg, templates=templates, lr=lr,
+                    draws=None if draws is None else draws[k]))))
+                continue
+            if draws is None:
+                n_anchors = cfg.heatmap_size[0] * cfg.heatmap_size[1] * cfg.num_templates
+                d = step_draws(gen, batch["gt_boxes"].shape[0], n_anchors)
+            else:
+                d = {"seeds": draws[k]["seeds"].to(dev),
+                     "uniforms": tuple(u.to(dev) for u in draws[k]["uniforms"])}
+            graph = state["graph"]
+            if graph is None:
+                # warm-up: cuDNN's and cuBLAS's set-up happens outside the capture
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    lb = train_step(model, opt, batch, None, cfg=cfg, templates=templates,
+                                    lr=lr, draws=d)
+                    out.append(torch.stack(list(lb)))
+                torch.cuda.current_stream(dev).wait_stream(side)
+                state["graph"] = _Captured(model, opt, batch, d, cfg=cfg, templates=templates,
+                                           lr=lr)
+                continue
+            if graph.key != _Captured.key_of(batch, lr):
+                state["graph"] = graph = None  # free its pool before the next capture
+                graph = state["graph"] = _Captured(model, opt, batch, d, cfg=cfg,
+                                                   templates=templates, lr=lr)
+            out.append(graph.replay(batch, d))
+        return LossBreakdown(*torch.stack(out).unbind(1))
+
+    return multi
 
 
 def print_state(idx: int, epoch: int, size: int, loss_cls: float, loss_reg: float):
@@ -315,8 +448,7 @@ class Trainer:
         self.metrics.close()
 
     def step_generator(self) -> torch.Generator:
-        seed = np.random.SeedSequence((self.seed, self.step)).generate_state(1, np.uint64)[0]
-        return torch.Generator(device=self.device).manual_seed(int(seed))
+        return step_generator(self.seed, self.step, self.device)
 
     def train_step(self, batch: dict) -> LossBreakdown:
         lb = train_step(self.model, self.opt, batch, self.step_generator(), cfg=self.cfg,

@@ -7,9 +7,8 @@
 * `sync`, `peak_gib`, `cuda_events_ms`: device clocks and memory;
 * `jpeg_bytes`: synthetic JPEG files, the one place PIL is needed (the
   instrument exits naming PIL when it is missing);
-* `unported`: the exit for a choice that ROADMAP item 15 holds
-  (`train_bench --multi`); `check_transfer`: the exit for a wire an
-  instrument does not take; `pyramid_inputs`: a pyramid's inputs on a wire;
+* `check_transfer`: the exit for a wire an instrument does not take;
+  `pyramid_inputs`: a pyramid's inputs on a wire;
 * `build_detector`: the pyramid with seeded weights, as the JAX benches'
   `get_model`.
 """
@@ -25,13 +24,7 @@ import torch
 
 from tinyfaces_tpu_torch.models.resnet import RESNET101_STAGES
 
-ITEM15 = "ROADMAP item 15 (decide or drop)"
 PYRAMID_WIRES = ("jpegdct", "jpegdct4", "rgb", "yuv420")  # what PyramidDetector takes
-
-
-def unported(what: str) -> SystemExit:
-    """The exit for a choice that is not ported; `raise unported(...)`."""
-    return SystemExit(f"{what} is not ported: {ITEM15}")
 
 
 def resolve_device(name: str) -> torch.device:
