@@ -1,17 +1,19 @@
 """Smoke run of the PyTorch/CUDA port (tinyfaces_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--against OTHER_CHECKOUT] [--spatial-only]
+    python3 chip_smoke.py [--against OTHER_CHECKOUT] [--spatial-only | --compiled-only]
 
 Phases, each printing its findings; any failure raises and exits non-zero
 (`--against` also builds another checkout's K1 and times it in turns with
 this one, other/this/this/other, at phase 2's timed scenes;
 `--spatial-only` runs phase 26 alone after its set-up, phase 5's
-calibrated model and phase 13's tree, e.g. over four cards):
+calibrated model and phase 13's tree, e.g. over four cards;
+`--compiled-only` runs phase 29 alone after its set-up, phase 5's
+calibrated model and the JPEG fixtures):
 
   0. device: needs CUDA; prints the card's name and power limit and turns
      TF32 off, so float32 means float32;
-  1. build: compiles the dense-assignment CUDA kernel, the C++ engine and
-     the JPEG entropy decoder from csrc/;
+  1. build: compiles the dense-assignment CUDA kernel K1, the NMS kernel
+     N1, the C++ engine and the JPEG entropy decoder from csrc/;
   2. kernel vs its plain PyTorch twin on the card, B=12 over the 63x63x25
      anchor grid with G in {8, 192, 512}, a ragged 61x63 grid and a
      train-like batch (G 192: no GT, a crowd crop of 192, then 1-40 GTs per
@@ -201,6 +203,9 @@ calibrated model and phase 13's tree, e.g. over four cards):
      difference, beside the same between batch 1 and batch 4 of the
      unsharded pyramid, gated on the 1x forward's RMS error against fp32
      (split at most 1.5x unsplit); ms/image and peak memory per card; then
+     shard="batch" over the same devices, one image a replica, fp32: the
+     eager call, the capture and a replay bit-equal to the eager path, one
+     graph per replica with its pool on its own card; then
      `evaluate_model.main --fp32 --debug` on phase 13's tree unsharded,
      with `--data-parallel --shard auto` and with `--shard spatial`, the
      result files paired with the unsharded run's;
@@ -215,17 +220,49 @@ calibrated model and phase 13's tree, e.g. over four cards):
  28. tools.h2d_probe (16 MiB payloads), tools.prewarm_cache (every
      library, cached by then) and tools.kernel_selftest (K1 against the
      plain assignment on the card: PASS).
+ 29. the compiled pyramid and N1 (phase 5's model, EvalConfig(), the
+     768x1024 bucket): (b) per wire setting (rgb, jpegdct, jpegdct4,
+     yuv420, rgb with resample="pil"), fp32 (TF32 off) and bf16, batch 1
+     and 32, the replayed CUDA graph's packed output against the eager
+     path's on the same inputs, bit-equal in fp32, in bf16 reported with
+     its share matched at IoU >= 0.99; the captures' seconds, graphs and
+     pool bytes; (c) at batch 1 one replay and one eager call under
+     torch.cuda.set_sync_debug_mode("error"); (a) N1 against
+     nms_bitmask_reference and the plain fixpoint, keep masks bit-equal, on
+     (b)'s decode outputs at batch 32 and 1 (bf16, fp32) and synthetic
+     scenes (valid counts 0, 1, 63, 64, 65, N; equal scores; zero-area
+     boxes; a suppression chain 200 deep), thresholds 0.3 and 0.5; N1
+     timed (a call, a graph replay) beside the plain keep step and the
+     bitmask reference at B = 32 and 1, with nms_bound; (d) on jpegdct
+     bf16, the eager path (trace set) and the replayed one: host launch
+     calls, device launches and busy share per batch-1 call
+     (tools.device_profile's trace), batch-1 latency (median of 20), b32
+     img/s, peak memory, DetectionService p50/p95/p99 at 16 req/s for 5 s
+     (tools.serving_bench), the captures and the pool; (e) at the reference
+     precision and the CLI's eval batch (fp32, TF32 off, eval batch 32):
+     one 768x1024 key's eager call and capture with the pool's bytes and
+     the allocator's peak after each, bit-equal outputs, then
+     evaluate_model.run over that bucket and then a 1024x768 one, three
+     batches of 32 each, so the second bucket's eager first call runs
+     beside the first one's captured graph: both keys captured, no release
+     for memory, the result tree, the pool and the peak.
+
+On a GPU every pyramid replays its CUDA graph (evaluation.PyramidDetector)
+from a key's second call on (its first runs eagerly in the graphs' pool),
+except where a trace is set: the CUDA-event splits of phases 6, 12, 16 and
+23-25 are of the eager path, and phase 26's split pyramid runs eagerly.
 
 Phases run in the order 0-4, 19, 20, 5-7, 21, 9-13, 15, 16, 23, 24, 25, 26,
-8, 18, 24's training, 14, 17, 22, 27, 28 (9-13, 16, 21 and 23-26 need phase
-5's model, 26 phase 13's tree, 18 and 24's training phase 8's tree and run,
-22 phase 12's rate).
+29, 8, 18, 24's training, 14, 17, 22, 27, 28 (9-13, 16, 21, 23-26 and 29
+need phase 5's model, 26 and 29 phase 13's fixtures, 18 and 24's training
+phase 8's tree and run, 22 phase 12's rate).
 
 The kernel build and the two host builds (the C++ engine, the JPEG
 decoder) run side by side in phase 1. The second-to-last line of output is
 the card's `nvidia-smi` name and power limit; before it, one JSON line
 describes each kernel (its launches on each path, error, times, bound),
-before that one holds phases 26-28's numbers ("spatial_multi_tools"),
+before that one holds phase 29's numbers ("compiled_pyramid"), before that
+one phases 26-28's ("spatial_multi_tools"),
 before that one JSON line holds phase 22's instrument numbers, before that
 one phases 23-25's ("wires"), before that
 one phases 18-21's multi-process numbers, before that one phases 15-17's
@@ -269,7 +306,9 @@ from tinyfaces_tpu_torch.data.targets import normalize_images
 from tinyfaces_tpu_torch.evaluation import PyramidDetector, _round_up, pyramid_level_sizes_np
 from tinyfaces_tpu_torch.models import resnet
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
-from tinyfaces_tpu_torch.ops import assignment_kernel
+from tinyfaces_tpu_torch import evaluation
+from tinyfaces_tpu_torch.ops import assignment_kernel, nms_kernel
+from tinyfaces_tpu_torch.ops import nms as nms_ops
 from tinyfaces_tpu_torch.ops import jpeg as jpeg_ops
 from tinyfaces_tpu_torch.ops import pilresize
 from tinyfaces_tpu_torch.ops.assignment import compose_targets, compute_pad_mask
@@ -809,10 +848,11 @@ def phase_full_width(calibrated: TinyFacesDetector, templates_np, dev: torch.dev
         t0 = time.perf_counter()
         packed = det.pack_inputs(images)
         pack_ms = 1000.0 * (time.perf_counter() - t0)
-        for _ in range(2):  # warm-up: cuDNN's first calls
-            det._fetch(det.detect_batch_async(packed))
+        # peak from the first call on: a replayed graph allocates nothing, its capture does
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(2):  # warm-up: the eager first call (cuDNN's set-up), the capture
+            det._fetch(det.detect_batch_async(packed))
         n = 3
         t0 = time.perf_counter()
         for _ in range(n):
@@ -839,11 +879,12 @@ def phase_full_width(calibrated: TinyFacesDetector, templates_np, dev: torch.dev
         results[label] = r
         print(f"pyramid {label} ResNet-101, 768x1024 bucket, batch {b}, EvalConfig() defaults, "
               f"resample={ec.resample}: "
-              f"{r['img_per_s']:.2f} img/s ({r['batch_ms']:.1f} ms/batch over {n} batches after 2 "
-              f"warm-up; host pack {pack_ms:.1f} ms/batch not included), batch-1 latency "
-              f"{r['batch1_ms']:.2f} ms (median of 5, pack included), peak memory {peak:.2f} GiB, "
+              f"{r['img_per_s']:.2f} img/s ({r['batch_ms']:.1f} ms/batch over {n} replayed batches "
+              f"after 2 warm-up; host pack {pack_ms:.1f} ms/batch not included), batch-1 latency "
+              f"{r['batch1_ms']:.2f} ms (replayed, median of 5, pack included), peak memory {peak:.2f} GiB, "
               f"{r['dets_per_image']:.1f} detections/image ({name})", flush=True)
-        print(f"  CUDA-event split of one batch (ms): {json.dumps(r['split_ms'])}", flush=True)
+        print(f"  CUDA-event split of one batch on the eager path (ms): {json.dumps(r['split_ms'])}",
+              flush=True)
         del model, det
         torch.cuda.empty_cache()
     return results
@@ -1260,10 +1301,10 @@ def phase_dct_full_width(calibrated: TinyFacesDetector, templates_np, fixtures: 
         t0 = time.perf_counter()
         jpegdct.pack_dct_batch([d], 768, 1024)
         one_ms.append(1000.0 * (time.perf_counter() - t0))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)  # from the first call on, the capture included
     for _ in range(2):
         det._fetch(det.detect_batch_async(packed))
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
     n = 3
     t0 = time.perf_counter()
     for _ in range(n):
@@ -1744,8 +1785,9 @@ def phase_instruments(dev: torch.device, name: str, phase12_img_per_s: float) ->
               f"{r['wire_Bpx']:.3f} B/px, H2D probe {r['h2d_probe_MiBps']:.0f} MiB/s, warm-up "
               f"{r['warmup_s']:.1f} s, peak {r['peak_gib']:.2f} GiB, {r['tflops']:.1f} TFLOP/s "
               f"({100 * (r['share_of_peak'] or 0):.1f}% of bf16 peak); batch-1 {lat['total_ms']:.2f} ms = "
-              f"pack {lat['pack_ms']:.2f} + enqueue {lat['enqueue_ms']:.2f} + wait {lat['wait_ms']:.2f}; "
-              f"upload {lat['upload_ms']:.2f}, device {lat['device_ms']:.2f} (CUDA events)", flush=True)
+              f"pack {lat['pack_ms']:.2f} + enqueue {lat['enqueue_ms']:.2f} + wait {lat['wait_ms']:.2f} "
+              f"(replayed graph); eager path (traced) {lat['eager_total_ms']:.2f} ms: upload "
+              f"{lat['eager_upload_ms']:.2f}, device {lat['eager_device_ms']:.2f} (CUDA events)", flush=True)
     print(f"bench jpegdct / phase 12's pyramid in this run: {out['bench_jpegdct_over_phase12']:.3f}", flush=True)
     print(f"bench_train yuv420: {train_yuv['value']:.2f} img/s (windows "
           f"{[round(x, 2) for x in train_yuv['window_rates']]}), peak {train_yuv['peak_gib']:.2f} GiB, "
@@ -1763,7 +1805,8 @@ def phase_instruments(dev: torch.device, name: str, phase12_img_per_s: float) ->
     for t, r in out["device_profile_b1"].items():
         print(f"device_profile {t} b1: {r['device_ms_per_batch']:.2f} ms of device time in "
               f"{r['window_ms'] / r['iters']:.2f} ms a batch, busy {100 * r['busy_share']:.1f}%, "
-              f"{r['launches_per_batch']:.0f} launches a batch", flush=True)
+              f"{r['launches_per_batch']:.0f} device launches and {r['host_launches_per_batch']:.0f} host "
+              f"launch calls a batch (replayed graph)", flush=True)
     print(f"profile_model: {out['profile_model']['pyramid_flops_per_image'] / 1e12:.4f} TFLOP/image, "
           f"train step {out['profile_model']['train_step_flops'] / 1e12:.4f} TFLOP", flush=True)
     print(f"pipeline_profile (rgb b16): prep {pp['host_prep_ms']:.2f}, H2D {pp['h2d_ms']:.2f} ms "
@@ -1799,14 +1842,15 @@ def phase_instruments(dev: torch.device, name: str, phase12_img_per_s: float) ->
 
 
 def timed_pyramid(det: PyramidDetector, packed, n: int = 3) -> dict:
-    """One PackedBatch through det n times after 2 warm-up runs: img/s,
-    ms/batch (host clock), peak memory, the finite outputs, and the
-    CUDA-event split of one more batch, every phase apart."""
+    """One PackedBatch through det n times after 2 warm-up runs (the first
+    runs eagerly, the second captures the graph): img/s, ms/batch (host clock), peak memory from the
+    first call on, the finite outputs, and the CUDA-event split of one more
+    batch on the eager path, every phase apart."""
     dev = det.devices[0]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)  # from the first call on, the capture included
     for _ in range(2):
         det._fetch(det.detect_batch_async(packed))
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     for _ in range(n):
         outs = det._fetch(det.detect_batch_async(packed))
@@ -2674,8 +2718,9 @@ def phase_spatial(calibrated: TinyFacesDetector, templates_np, dev: torch.device
     """Phase 26: one image's forward split over the cards by rows
     (parallel/spatial.py, shard="spatial") against the unsharded pyramid,
     EvalConfig() defaults, the 768x1024 bucket at batch 1 and 4, fp32 (TF32
-    off) and bf16; then the evaluate_model CLI with --data-parallel --shard
-    auto and spatial on 5 JPEG files of phase 13's tree.
+    off) and bf16; then data_parallel_graphs over the same devices; then
+    the evaluate_model CLI with --data-parallel --shard auto and spatial on
+    5 JPEG files of phase 13's tree.
 
     fp32: the same detections (same_detections), or only near-ties
     unpaired at the same tolerance. bf16: the share of detections matched
@@ -2758,8 +2803,45 @@ def phase_spatial(calibrated: TinyFacesDetector, templates_np, dev: torch.device
         del model, base, sp
         gc.collect()
         torch.cuda.empty_cache()
+    out["data_parallel_graphs"] = data_parallel_graphs(calibrated, templates_np, devices, name)
     out["cli"] = spatial_cli(calibrated, devices)
     return out
+
+
+def data_parallel_graphs(calibrated: TinyFacesDetector, templates_np, devices: list, name: str) -> dict:
+    """Phase 26 (end): shard="batch" over the same devices, one replica and
+    one 768x1024 image each, fp32: three calls (the first eager, the second
+    captures every replica's graph on its own stream into its own pool, the
+    third replays), each replayed output bit-equal to the eager path's
+    (trace set); every replica holds one graph and its pool's memory lies
+    on its own card."""
+    images = pink_images(np.random.default_rng(261), [(768, 1024)] * len(devices))
+    det = PyramidDetector(copy.deepcopy(calibrated), templates_np, DetectorConfig(), EvalConfig(),
+                          device=devices)
+    packed = det.pack_inputs(images)
+    outs = [result_of(det, packed) for _ in range(3)]
+    with eager(det):
+        plain = result_of(det, packed)
+    stats = det.graph_stats()
+    segs = torch.cuda.memory_snapshot()
+    pool_cards = [sorted({s["device"] for s in segs
+                          if tuple(s.get("segment_pool_id", ())) == tuple(r.cache.pool.id)})
+                  for r in det.replicas]
+    same = [bool(np.array_equal(o.view(np.uint32), plain.view(np.uint32))) for o in outs]
+    r = {"replicas": len(devices), "bit_equal_by_call": same, "graphs": [s["graphs"] for s in stats],
+         "pool_cards": pool_cards, "pool_gib": [s["pool_reserved_bytes"] / 2**30 for s in stats],
+         "capture_s": [s["capture_s"] for s in stats]}
+    check(all(same) and r["graphs"] == [1] * len(devices)
+          and pool_cards == [[d.index] for d in devices],
+          f"data-parallel graphs over {devices}: {r}")
+    print(f"data-parallel fp32 over {len(devices)} replicas ({len(set(devices))} card(s)), one image "
+          f"each: eager, capture and replay bit-equal to the eager path {same}, one graph per "
+          f"replica, pools on cards {pool_cards}, {[round(g, 2) for g in r['pool_gib']]} GiB ({name})",
+          flush=True)
+    del det
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
 
 
 def spatial_cli(calibrated: TinyFacesDetector, devices: list) -> dict:
@@ -2902,7 +2984,7 @@ def phase_tools(name: str) -> dict:
     probe = run_tool("h2d_probe", h2d_probe.main, ["--mib", "16", "--iters", "3"])
     check(all(r["mib_per_s"] > 0 for r in probe["rows"]), "h2d_probe: a rate is not positive")
     warm = run_tool("prewarm_cache", prewarm_cache.main, [])
-    check({r["name"] for r in warm["libraries"]} == {"dense_assignment", "tinyfaces_native", "jpeg_dct"},
+    check({r["name"] for r in warm["libraries"]} == {"dense_assignment", "nms", "tinyfaces_native", "jpeg_dct"},
           f"prewarm_cache: {warm}")
     selftest = run_tool("kernel_selftest", kernel_selftest.main, ["--iters", "5"])
     check(selftest["ok"], f"kernel_selftest: {selftest}")
@@ -2912,6 +2994,414 @@ def phase_tools(name: str) -> dict:
           f"mismatch {selftest['label_mismatch_rate']:.2e}, kernel {selftest['kernel_ms']:.3f} ms "
           f"vs plain {selftest['plain_ms']:.3f} ms ({name})", flush=True)
     return {"h2d_probe": probe["rows"], "prewarm_cache": warm, "kernel_selftest": selftest}
+
+
+# --- the compiled pyramid and kernel N1: phase 29 ---------------------------
+
+GRAPH_DIR = ROOT / "build" / "chip_smoke" / "graphs"
+WIRE_SETTINGS = (("rgb", "linear"), ("jpegdct", "linear"), ("jpegdct4", "linear"),
+                 ("yuv420", "linear"), ("rgb", "pil"))
+
+
+def n1_scenes(rng, n: int = 4000) -> list:
+    """Phase 29's synthetic NMS scenes of n candidates: (label, boxes (n, 4)
+    f32, scores (n,) f32, valid (n,) bool). Clustered boxes on a 0.5 px grid
+    with one in 16 of zero width or height; valid counts 0, 1, 63, 64, 65
+    and n; all scores equal; and a chain of 200 boxes 3 px apart (IoU 7/13
+    with the next, 1/4 with the one after), ranked in order, so that each
+    kept box's suppression frees the box after next."""
+    def clustered(n_valid, equal=False):
+        k = n // 60
+        c = rng.uniform(50, 950, (k, 2))[rng.integers(0, k, n)] + rng.normal(0, 6, (n, 2))
+        wh = rng.uniform(20, 60, (n, 2))
+        zero = rng.uniform(size=n) < 1 / 16
+        wh[zero, rng.integers(0, 2, int(zero.sum()))] = 0.0
+        b = (np.round(np.concatenate([c - wh / 2, c + wh / 2], 1) * 2) / 2).astype(np.float32)
+        s = (np.full(n, 0.5) if equal else rng.integers(0, 40, n) / 8.0 - 2.0).astype(np.float32)
+        v = np.zeros(n, bool)
+        v[rng.permutation(n)[:n_valid]] = True
+        return b, s, v
+
+    scenes = [(f"valid {k}", *clustered(k)) for k in (0, 1, 63, 64, 65, n)]
+    scenes.append(("equal scores", *clustered(n, equal=True)))
+    b, s, v = clustered(n)
+    x = 3.0 * np.arange(200, dtype=np.float32)
+    b[:200] = np.stack([x, np.zeros_like(x), x + 10, np.full_like(x, 10)], 1) + 2000.0
+    s[:200] = 10.0 - np.arange(200, dtype=np.float32) / 256
+    v[:200] = True
+    scenes.append(("chain of 200", b, s, v))
+    return scenes
+
+
+def rank_for_nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor):
+    """The rank-sorted (boxes, valid) that nms() hands its keep step."""
+    ranked = torch.where(valid, scores, -torch.inf)
+    order = torch.sort(ranked, dim=1, descending=True, stable=True).indices
+    n = order.shape[1]
+    return boxes.gather(1, order[..., None].expand(-1, n, 4)), valid.gather(1, order)
+
+
+def n1_against_plain(label: str, boxes_s: torch.Tensor, valid_s: torch.Tensor, thr: float) -> int:
+    """N1's keep mask on the card equal, bit for bit, to nms_bitmask_reference's
+    and to the plain fixpoint's on the same inputs; returns the largest
+    difference (0)."""
+    got = nms_kernel._launch(boxes_s, valid_s, thr)
+    ref = nms_kernel.nms_bitmask_reference(boxes_s, valid_s, thr)
+    fix = nms_ops._plain_keep(boxes_s, valid_s, thr)
+    torch.cuda.synchronize()
+    err = max(int((got.int() - ref.int()).abs().max()), int((got.int() - fix.int()).abs().max()))
+    check(err == 0 and not bool((got & ~valid_s).any()),
+          f"N1 {label} thr {thr}: {int((got != ref).sum())} rows differ from the bitmask reference, "
+          f"{int((got != fix).sum())} from the fixpoint")
+    return err
+
+
+class NmsRecorder:
+    """Keeps a copy of the inputs of every batched_nms_padded call the
+    pyramid makes while it is entered (the concatenated decode outputs)."""
+
+    def __enter__(self):
+        self.calls, self.orig = [], evaluation.batched_nms_padded
+
+        def record(boxes, scores, thr, valid, max_out):
+            self.calls.append((boxes.clone(), scores.clone(), valid.clone()))
+            return self.orig(boxes, scores, thr, valid, max_out)
+
+        evaluation.batched_nms_padded = record
+        return self
+
+    def __exit__(self, *exc):
+        evaluation.batched_nms_padded = self.orig
+
+
+def result_of(det: PyramidDetector, packed) -> np.ndarray:
+    """The packed (B, K, 6) host output of one detect_batch_async call."""
+    res = det.detect_batch_async(packed)
+    for e in res.events:
+        e.synchronize()
+    return res.host.numpy().copy()
+
+
+@contextlib.contextmanager
+def eager(det: PyramidDetector):
+    """The detector's eager path: a trace set (its events discarded)."""
+    det.trace = []
+    try:
+        yield det
+    finally:
+        det.trace = None
+
+
+@contextlib.contextmanager
+def sync_errors():
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def detections_of(packed: np.ndarray) -> list:
+    return [p[p[:, 5] > 0, :5] for p in packed]
+
+
+def phase_n1(recorded: dict, dev: torch.device, name: str) -> dict:
+    """Phase 29 (a): N1 against nms_bitmask_reference and the plain fixpoint
+    on the card, keep masks bit-equal: the decode outputs phase 5's model
+    gives the 768x1024 pyramid at batch 32 (bf16 and fp32, recorded by (b)),
+    and the synthetic scenes in one batch, each at thresholds 0.3 and 0.5.
+    Then N1 timed (CUDA events, median of 20: a call from the host, and the
+    device time of a CUDA-graph replay) beside the plain keep step (median
+    of 20) and the bitmask reference (median of 3) at B = 32 and B = 1 of
+    the bf16 decode outputs, with nms_bound of those inputs and N1's keep
+    mask (the pairs under a kept row)."""
+    t0 = time.perf_counter()
+    scenes = n1_scenes(np.random.default_rng(29))
+    syn = [torch.from_numpy(np.stack(x)).to(dev) for x in list(zip(*scenes))[1:]]
+    err, checked = 0, []
+    for thr in (0.3, 0.5):
+        err = max(err, n1_against_plain("synthetic", *rank_for_nms(*syn), thr))
+        checked.append(f"synthetic B={len(scenes)} thr {thr}")
+        for label, (boxes, scores, valid) in recorded.items():
+            err = max(err, n1_against_plain(label, *rank_for_nms(boxes, scores, valid), thr))
+            checked.append(f"{label} thr {thr}")
+    boxes_s, valid_s = rank_for_nms(*recorded["bf16 b32"])
+    timing = {}
+    for b in (32, 1):
+        bx, vd = boxes_s[:b].contiguous(), valid_s[:b].contiguous()
+        ext = nms_kernel.valid_extent(vd)
+        bound = nms_kernel.nms_bound(ext, bx.shape[1], nms_kernel._launch(bx, vd, 0.3))
+        timing[f"B{b}"] = {
+            "ms": cuda_ms(lambda: nms_kernel._launch(bx, vd, 0.3)),
+            "device_ms": graph_ms(lambda: nms_kernel._launch(bx, vd, 0.3)),
+            "plain_ms": cuda_ms(lambda: nms_ops._plain_keep(bx, vd, 0.3)),
+            "bitmask_reference_ms": cuda_ms(lambda: nms_kernel.nms_bitmask_reference(bx, vd, 0.3),
+                                            runs=3, warmup=1),
+            "n": bx.shape[1], "valid_extent_max": int(ext.max()), "valid_extent_mean": float(ext.float().mean()),
+            **bound}
+        r = timing[f"B{b}"]
+        print(f"N1 at B={b}, N={r['n']} (bf16 decode outputs, valid extent mean {r['valid_extent_mean']:.0f}, "
+              f"max {r['valid_extent_max']}): {r['ms']:.4f} ms a call, {r['device_ms']:.4f} ms on the device "
+              f"(graph replay), plain keep step {r['plain_ms']:.3f} ms, bitmask reference "
+              f"{r['bitmask_reference_ms']:.1f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{r['needed_pairs']} pairs under a kept row of {r['valid_pairs']} valid; "
+              f"operations {r['operations_ms']:.4f}, bytes {r['bytes_ms']:.5f}, mask bytes "
+              f"{r['mask_bytes_ms']:.4f}, serial chain {r['serial_chain_ms']:.4f}) ({name})", flush=True)
+    print(f"N1 keep masks bit-equal to the bitmask reference and the fixpoint on {len(checked)} inputs: "
+          f"{checked} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return {"max_abs_err": err, "checked": checked, **timing}
+
+
+def phase_graphs(calibrated: TinyFacesDetector, templates_np, fixtures: dict, dev: torch.device,
+                 name: str) -> tuple[dict, dict]:
+    """Phase 29 (b, c): per wire and resample setting (rgb, jpegdct,
+    jpegdct4, yuv420, rgb with pil), fp32 (TF32 off) and bf16, EvalConfig()
+    defaults, the 768x1024 bucket at batch 1 and 32: the first call (warm-up
+    and capture), then the replayed graph's packed output against the eager
+    path's on the same inputs: bit-equal in fp32, in bf16 reported (the
+    share of equal values and of detections matched at IoU >= 0.99). At
+    batch 1, one replay and one eager call under
+    torch.cuda.set_sync_debug_mode("error"). The capture seconds and the
+    pool's bytes per key; the eager runs share the graphs' pool, as every
+    eager run on a GPU replica does. Returns the results and the NMS inputs
+    recorded at rgb batch 32 for (a)."""
+    pink = pink_images(np.random.default_rng(29), [(768, 1024)] * 32)
+    data = in_bucket(fixtures, (768, 1024))
+    jpegs = [data[i % len(data)] for i in range(32)]
+    out, recorded = {}, {}
+    for label, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        model = TinyFacesDetector(dtype=dtype).to(dev)
+        model.load_state_dict(calibrated.state_dict())
+        for transfer, resample in WIRE_SETTINGS:
+            tag = f"{label} {transfer}" + (" pil" if resample == "pil" else "")
+            det = PyramidDetector(model, templates_np, DetectorConfig(), EvalConfig(resample=resample),
+                                  device=dev, transfer=transfer)
+            images = jpegs if transfer.startswith("jpegdct") else pink
+            row = {}
+            capture_s, pool_gib, n1_per_replay = [], 0.0, []
+            for b in (1, 32):
+                packed = det.pack_inputs(images[:b])
+                result_of(det, packed)  # the key's first call: eager
+                replayed = result_of(det, packed)  # its second: the capture, then a replay
+                stats = det.graph_stats()[0]
+                capture_s.append(stats["capture_s"][-1])
+                n1_per_replay.append(stats["n1_launches"][-1])
+                pool_gib = max(pool_gib, (stats["pool_reserved_bytes"] or 0) / 2**30)
+                if b == 1:
+                    with sync_errors():
+                        res = det.detect_batch_async(packed)
+                    for e in res.events:
+                        e.synchronize()
+                    with eager(det), sync_errors():
+                        res = det.detect_batch_async(packed)
+                    for e in res.events:
+                        e.synchronize()
+                with eager(det):
+                    if b == 32 and transfer == "rgb" and resample == "linear":
+                        with NmsRecorder() as rec:
+                            plain = result_of(det, packed)
+                        recorded[f"{label} b32"] = rec.calls[0]
+                        recorded[f"{label} b1"] = tuple(t[:1] for t in rec.calls[0])
+                    else:
+                        plain = result_of(det, packed)
+                same = bool(np.array_equal(replayed.view(np.uint32), plain.view(np.uint32)))
+                cell = {"bit_equal": same, "equal_value_share": float((replayed == plain).mean()),
+                        "dets_per_image": float(replayed[..., 5].sum(1).mean())}
+                if not same:
+                    shares = [iou_matched_share(g, w) for g, w in
+                              zip(detections_of(replayed), detections_of(plain))]
+                    cell["iou099_share"] = float(np.mean([s for s, _ in shares]))
+                    cell["max_score_diff"] = max(d for _, d in shares)
+                if b == 1:
+                    cell["sync_debug_error_mode"] = "no sync in a replay or an eager call"
+                row[f"b{b}"] = cell
+                check(same or label == "bf16",
+                      f"{tag} batch {b}: the replayed graph's output differs from the eager path's "
+                      f"({cell['equal_value_share']:.6f} of the values equal)")
+            row.update(capture_s=capture_s, pool_gib=pool_gib, n1_per_replay=n1_per_replay)
+            out[tag] = row
+            print(f"graph {tag}: b1 {row['b1']}, b32 {row['b32']}; batch 1 and 32 captured in "
+                  f"{[round(c, 3) for c in capture_s]} s, pool up to {pool_gib:.2f} GiB, N1 "
+                  f"{n1_per_replay} a replay ({name})", flush=True)
+            del det
+            gc.collect()
+            torch.cuda.empty_cache()
+        del model
+    return out, recorded
+
+
+def path_numbers(det: PyramidDetector, images: list, packed32, dev: torch.device, tag: str) -> dict:
+    """Phase 29 (d) for one path (the detector as it is: replayed, or with
+    its trace set: eager): host launch calls and device busy share per
+    batch-1 call (torch.profiler, tools.device_profile), batch-1 latency
+    (detect_batch, pack included, median of 20), b32 img/s (3 batches after
+    a warm one), the allocator's peak over the warm one and those (the
+    capture's pool included) and the memory reserved after them,
+    DetectionService p50/p95/p99 at 16 req/s for 5 s
+    (tools.serving_bench)."""
+    r = {}
+    prof = device_profile.profile(det, lambda i: images[i:i + 1], 3, GRAPH_DIR / f"trace_{tag}",
+                                  eager=tag == "eager")
+    r["host_launches_b1"] = prof["host_launches_per_batch"]
+    r["device_launches_b1"] = prof["launches_per_batch"]
+    r["busy_share_b1"] = prof["busy_share"]
+    one = images[9:10]
+    for _ in range(2):  # the first call, the capture
+        det.detect_batch(one)
+    lat = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        det.detect_batch(one)
+        lat.append(1e3 * (time.perf_counter() - t0))
+    r["batch1_ms"] = float(np.median(lat))
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(2):  # warm-up (on the replayed path: the eager first call, the capture)
+        result_of(det, packed32)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        det._fetch(det.detect_batch_async(packed32))
+    r["b32_img_per_s"] = 3 * 32 / (time.perf_counter() - t0)
+    r["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    r["reserved_gib"] = torch.cuda.memory_reserved(dev) / 2**30
+    rows = serving_bench.serve(det, images[:8], [16.0], 5.0)
+    r["serving_16"] = {k: rows[0][k] for k in ("achieved", "n", "p50_ms", "p95_ms", "p99_ms", "max_ms")}
+    return r
+
+
+def phase_paths(calibrated: TinyFacesDetector, templates_np, fixtures: dict, dev: torch.device,
+                name: str) -> dict:
+    """Phase 29 (d): the eager and the replayed path side by side on the
+    JPEG wire the CLI and bench default to (jpegdct, bf16, EvalConfig(),
+    the 768x1024 fixtures): path_numbers for each, eager first, on one
+    detector, and what its graphs cost (captures, pool)."""
+    data = in_bucket(fixtures, (768, 1024))
+    images = [data[i % len(data)] for i in range(32)]
+    det = PyramidDetector(bf16_copy(calibrated, dev), templates_np, DetectorConfig(), EvalConfig(),
+                          device=dev, transfer="jpegdct")
+    packed32 = det.pack_inputs(images)
+    GRAPH_DIR.mkdir(parents=True, exist_ok=True)
+    out = {}
+    with eager(det):
+        out["eager"] = path_numbers(det, images, packed32, dev, "eager")
+    out["graph"] = path_numbers(det, images, packed32, dev, "graph")
+    stats = det.graph_stats()[0]
+    out["graph"].update(graphs=stats["graphs"], capture_s=stats["capture_s"],
+                        pool_gib=(stats["pool_reserved_bytes"] or 0) / 2**30)
+    for path, r in out.items():
+        print(f"{path} path (jpegdct bf16 768x1024): batch-1 {r['batch1_ms']:.2f} ms (median of 20), "
+              f"{r['host_launches_b1']:.0f} host launch calls and {r['device_launches_b1']:.0f} device "
+              f"launches a batch-1 call, device busy {100 * r['busy_share_b1']:.1f}%; b32 "
+              f"{r['b32_img_per_s']:.2f} img/s, peak {r['peak_gib']:.2f} GiB, reserved "
+              f"{r['reserved_gib']:.2f} GiB; service at 16/s: p50 "
+              f"{r['serving_16']['p50_ms']} p95 {r['serving_16']['p95_ms']} p99 {r['serving_16']['p99_ms']} "
+              f"ms (achieved {r['serving_16']['achieved']}/s) ({name})", flush=True)
+    g = out["graph"]
+    print(f"graphs of this detector: {g['graphs']} (batch 1, 2, 4, 8, 16 of the service's ladder and "
+          f"32), captured in {[round(c, 2) for c in g['capture_s']]} s, shared pool {g['pool_gib']:.2f} "
+          f"GiB", flush=True)
+    del det
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pool_gib(det: PyramidDetector) -> tuple[float, float]:
+    """(reserved, allocated) GiB of the first replica's graph pool."""
+    pool = tuple(det.replicas[0].cache.pool.id)
+    segs = [s for s in torch.cuda.memory_snapshot() if tuple(s.get("segment_pool_id", ())) == pool]
+    return (sum(s["total_size"] for s in segs) / 2**30, sum(s["allocated_size"] for s in segs) / 2**30)
+
+
+def phase_fp32_buckets(calibrated: TinyFacesDetector, templates_np, dev: torch.device, name: str) -> dict:
+    """Phase 29 (e): the reference precision at the CLI's eval batch (fp32,
+    TF32 off, eval batch 32, EvalConfig() defaults, rgb). First the
+    768x1024 key alone: its eager call and its capture, the pool's reserved
+    and allocated bytes and the allocator's peak after each, the replayed
+    output bit-equal to the eager one. Then evaluate_model.run over 96
+    images of that bucket and then 96 of 1024x768 (three batches of 32
+    each): the second bucket's first, eager batch runs beside the first
+    bucket's captured graph, its second captures, its third replays. Both
+    keys must stay captured (no release for memory); the result tree, the
+    pool and the peak over the sweep."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(30)
+    base = {hw: pink_images(rng, [hw] * 4) for hw in ((768, 1024), (1024, 768))}
+    det = PyramidDetector(calibrated, templates_np, DetectorConfig(), EvalConfig(), device=dev)
+    packed = det.pack_inputs(base[(768, 1024)] * 8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, first = {"card": name}, {}
+    for step in ("eager", "capture"):
+        first[step] = result_of(det, packed)
+        reserved, allocated = pool_gib(det)
+        out[step] = {"pool_reserved_gib": reserved, "pool_allocated_gib": allocated,
+                     "peak_allocated_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                     "reserved_gib": torch.cuda.memory_reserved(dev) / 2**30}
+    check(np.array_equal(first["eager"].view(np.uint32), first["capture"].view(np.uint32)),
+          "fp32 b32 768x1024: the replayed graph's output differs from the eager call's")
+    items = [(base[hw][i % 4], f"{i % 4}--Event{i % 4}/fp32_{hw[0]}x{hw[1]}_{i}.jpg")
+             for hw in base for i in range(96)]
+    out_dir = ROOT / "build" / "chip_smoke" / "val_fp32"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    evaluate_model.run(det, MemoryDataset(items), 0.03, 0.3, "val", results_dir=out_dir,
+                       eval_batch=32, workers=4)
+    files, n_dets = check_result_tree(out_dir, len(items))
+    stats = det.graph_stats()[0]
+    reserved, allocated = pool_gib(det)
+    out["sweep"] = {"files": len(files), "detections": n_dets, "graphs": stats["graphs"],
+                    "releases": stats["releases"], "capture_s": stats["capture_s"],
+                    "pool_reserved_gib": reserved, "pool_allocated_gib": allocated,
+                    "peak_allocated_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                    "reserved_gib": torch.cuda.memory_reserved(dev) / 2**30,
+                    "img_per_s": evaluate_model.run.last_phases["images_per_sec"]}
+    s = out["sweep"]
+    check(s["graphs"] == 2 and s["releases"] == 0,
+          f"fp32 eval batch 32 over two buckets: {s['graphs']} graphs, {s['releases']} releases for memory")
+    out["phase_s"] = time.perf_counter() - t0
+    e, c = out["eager"], out["capture"]
+    print(f"fp32 b32 768x1024 key: after its eager call pool {e['pool_reserved_gib']:.2f} GiB reserved / "
+          f"{e['pool_allocated_gib']:.2f} allocated, peak allocated {e['peak_allocated_gib']:.2f}, card "
+          f"reserved {e['reserved_gib']:.2f}; after its capture pool {c['pool_reserved_gib']:.2f} / "
+          f"{c['pool_allocated_gib']:.2f}, peak {c['peak_allocated_gib']:.2f}, card reserved "
+          f"{c['reserved_gib']:.2f} GiB; replay bit-equal to the eager call ({name})", flush=True)
+    print(f"evaluate_model.run fp32 eval batch 32, 768x1024 then 1024x768 (3 batches each): "
+          f"{s['files']} result files, {s['detections']} detections, {s['graphs']} graphs captured "
+          f"in {[round(x, 2) for x in s['capture_s']]} s, {s['releases']} releases, pool "
+          f"{s['pool_reserved_gib']:.2f} GiB reserved / {s['pool_allocated_gib']:.2f} allocated, peak "
+          f"allocated {s['peak_allocated_gib']:.2f}, card reserved {s['reserved_gib']:.2f} GiB, "
+          f"{s['img_per_s']:.2f} img/s ({out['phase_s']:.1f} s; {name})", flush=True)
+    del det
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_compiled_pyramid(calibrated: TinyFacesDetector, templates_np, fixtures: dict,
+                           dev: torch.device, name: str) -> tuple[dict, int]:
+    """Phase 29: (b, c) phase_graphs, (e) phase_fp32_buckets, (a) phase_n1
+    on (b)'s recorded NMS inputs, (d) phase_paths. Returns the results and
+    N1's launches on the pyramid paths of (b), (e) and (d) (replays
+    counted; (a)'s comparison launches are not)."""
+    t0 = time.perf_counter()
+    nms_kernel.launch_count = 0
+    graphs, recorded = phase_graphs(calibrated, templates_np, fixtures, dev, name)
+    fp32_buckets = phase_fp32_buckets(calibrated, templates_np, dev, name)
+    launches = nms_kernel.launch_count
+    n1 = phase_n1(recorded, dev, name)
+    del recorded
+    nms_kernel.launch_count = 0
+    paths = phase_paths(calibrated, templates_np, fixtures, dev, name)
+    launches += nms_kernel.launch_count
+    out = {"card": name, "n1": n1, "graphs": graphs, "fp32_buckets": fp32_buckets, "paths": paths,
+           "phase_s": time.perf_counter() - t0}
+    print(f"phase 29 (the compiled pyramid, N1) took {out['phase_s']:.1f} s, N1 launched {launches} "
+          f"times on its pyramid paths ({name})", flush=True)
+    return out, launches
 
 
 WORKERS = {"dist_steps": worker_dist_steps, "stop": worker_stop, "eval": worker_eval}
@@ -2929,6 +3419,9 @@ def main() -> None:
     ap.add_argument("--spatial-only", action="store_true",
                     help="phase 26 alone, after its set-up (phase 5's calibrated model, phase "
                          "13's tree), e.g. over four cards")
+    ap.add_argument("--compiled-only", action="store_true",
+                    help="phase 29 alone, after its set-up (phase 5's calibrated model, the JPEG "
+                         "fixtures)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs an NVIDIA GPU")
@@ -2942,13 +3435,13 @@ def main() -> None:
           flush=True)
 
     t0 = time.perf_counter()
-    builds = [assignment_kernel._kernel, native.load, jpegdct.load]
+    builds = [assignment_kernel._kernel, nms_kernel._kernel, native.load, jpegdct.load]
     if args.against is not None:
         builds.append(lambda: build_against(args.against))
     with ThreadPoolExecutor(len(builds)) as pool:  # nvcc and the host compiler side by side
         built = [f.result() for f in [pool.submit(build) for build in builds]]
-    against = built[3] if args.against is not None else None
-    print(f"build: dense_assignment.cu (nvcc), tinyfaces_native.cpp and jpeg_dct.cpp (host C++) "
+    against = built[4] if args.against is not None else None
+    print(f"build: dense_assignment.cu and nms.cu (nvcc), tinyfaces_native.cpp and jpeg_dct.cpp (host C++) "
           f"compiled and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
 
     templates_np = load_templates()
@@ -2959,6 +3452,18 @@ def main() -> None:
         spatial = phase_spatial(model, templates_np, dev, name)
         print(f"phase 26 passed in {time.perf_counter() - start:.1f} s ({name})", flush=True)
         print(json.dumps({"spatial": spatial}))
+        print(name)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return
+    if args.compiled_only:
+        model = init_model(TinyFacesDetector(), torch.Generator().manual_seed(0)).to(dev)
+        calibrate(model, pink_images(np.random.default_rng(5), [(192, 256), (176, 248)]), dev)
+        compiled, n1_graph_launches = phase_compiled_pyramid(model, templates_np, load_fixtures(), dev, name)
+        check(n1_graph_launches > 0, "phase 29's pyramids did not launch N1")
+        print(f"phase 29 passed in {time.perf_counter() - start:.1f} s ({name})", flush=True)
+        print(json.dumps({"compiled_pyramid": compiled}))
         print(name)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -2976,9 +3481,12 @@ def main() -> None:
     dist_result["agreed_stop"], stop_launches = phase_agreed_stop(name)
     t_dist = time.perf_counter() - t_dist
 
+    nms_kernel.launch_count = 0
     model, vs_cpu = phase_inference_vs_cpu(templates_np, dev)
     full = phase_full_width(model, templates_np, dev, name)
     served = phase_sweep_and_service(model, templates_np, dev)
+    n1_launches = nms_kernel.launch_count
+    check(n1_launches > 0, "phases 5-7 ran the pyramid on the card without launching N1")
     t0 = time.perf_counter()
     dist_result["eval"] = phase_eval_distributed(model, templates_np, dev, name)
     t_dist += time.perf_counter() - t0
@@ -2998,6 +3506,8 @@ def main() -> None:
     t0 = time.perf_counter()
     slice10 = {"spatial": phase_spatial(model, templates_np, dev, name)}
     t_slice10 = time.perf_counter() - t0
+    compiled, n1_graph_launches = phase_compiled_pyramid(model, templates_np, fixtures, dev, name)
+    check(n1_graph_launches > 0, "phase 29's pyramids did not launch N1")
     del model
     torch.cuda.empty_cache()
     train_cli_result, cli_launches, ann, train_set = phase_train_cli(templates_np, dev, name)
@@ -3031,6 +3541,8 @@ def main() -> None:
     print(json.dumps({"wires": wires}))
     print(json.dumps({"instruments": instruments}))
     print(json.dumps({"spatial_multi_tools": slice10}))
+    print(json.dumps({"compiled_pyramid": compiled}))
+    n1 = compiled["n1"]
     print(json.dumps({"kernels": [{
         "name": "dense_assignment_reductions",
         "route": "cuda",
@@ -3049,6 +3561,20 @@ def main() -> None:
         **kres[f"G{DetectorConfig().max_gt}"],
         "library_ms": None,  # no single PyTorch call computes it
         "train_like": kres["train_like"],
+    }, {
+        "name": "nms_keep",
+        "route": "cuda",
+        "source": "tinyfaces_tpu_torch/csrc/nms.cu",
+        "replaces": "tinyfaces_tpu/ops/nms.py:42,119 (the JAX NMS's device loops; not a Pallas kernel)",
+        "launches": n1_launches + n1_graph_launches,
+        "launches_by_path": {"pyramid_phases_5_7": n1_launches,
+                             "compiled_pyramid_phase_29": n1_graph_launches},
+        "max_abs_err": n1["max_abs_err"],
+        "ms": n1["B32"]["ms"], "device_ms": n1["B32"]["device_ms"], "plain_ms": n1["B32"]["plain_ms"],
+        "bitmask_reference_ms": n1["B32"]["bitmask_reference_ms"],
+        "bound_ms": n1["B32"]["bound_ms"], "bound_by": n1["B32"]["bound_by"],
+        "library_ms": None,  # no torchvision on the machine; no other single call computes it
+        "B1": n1["B1"],
     }]}))
     print(name)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

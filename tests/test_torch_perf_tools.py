@@ -170,8 +170,12 @@ def test_device_profile_parses_a_trace(tmp_path):
               k("void at::native::vectorized_elementwise_kernel<4, clamp_min>", 500, 100),
               k("nchwToNhwcKernel", 700, 50),
               k("Memcpy HtoD (Pinned -> Device)", 0, 50, "gpu_memcpy"),
-              {"ph": "X", "cat": "cpu_op", "name": "aten::conv2d", "ts": 0, "dur": 900}]
+              {"ph": "X", "cat": "cpu_op", "name": "aten::conv2d", "ts": 0, "dur": 900},
+              k("cudaLaunchKernel", 10, 5, "cuda_runtime"), k("cudaGraphLaunch", 20, 5, "cuda_runtime"),
+              k("cudaMemcpyAsync", 30, 5, "cuda_runtime"), k("cuLaunchKernel", 40, 5, "cuda_driver"),
+              k("cudaStreamWaitEvent", 50, 5, "cuda_runtime"), k("cudaLaunchKernel", 1200, 5, "cuda_runtime")]
     r = device_profile.parse_trace(_trace(tmp_path, events), iters=2, batch=4, top=3)
+    assert r["host_launches_per_batch"] == 2.0  # four launch calls in the window, over 2 batches
     assert r["device_ms"] == pytest.approx(0.6)
     assert r["device_ms_per_batch"] == pytest.approx(0.3)
     busy = 50 + 350 + 100 + 50  # union of [0,50) [100,450) [500,600) [700,750)

@@ -30,9 +30,14 @@ from tools.wire_stats).
 Prints ONE JSON line last on stdout: {"metric", "value", "unit",
 "vs_baseline"}. On stderr: the card's name and power limit, the wire's
 B/px, an 8 MiB pinned host-to-device copy timed with CUDA events, warm-up
-seconds, the window rates, batch-1 latency split into host pack, upload and
-device (CUDA events), peak memory, and FLOP/image with the achieved
-TFLOP/s (tools.profile_model).
+seconds, the window rates, batch-1 latency with its host pack, enqueue and
+wait, then the eager path's batch-1 split into upload and device (CUDA
+events), peak memory from the first call on (the warm-up and, on a GPU,
+the captures included), and FLOP/image with the achieved TFLOP/s
+(tools.profile_model). On a GPU the timed batches and the batch-1 latency
+replay the pyramid's CUDA graph (one per batch shape, captured at its second
+call); the CUDA-event split needs the eager run, which a traced batch takes
+(evaluation.PyramidDetector), so it is labelled as the eager path's.
 
 Baseline: the reference publishes no throughput numbers (BASELINE.md). We
 use a FLOPs-derived estimate of the reference PyTorch pipeline on an A100:
@@ -134,34 +139,46 @@ def h2d_probe_mibps(dev: torch.device, mib: int = 8) -> float | None:
 
 def latency_split(det, inputs: Sequence, runs: int = 5) -> dict:
     """Batch-1 latency, median of `runs` distinct images after one warm-up,
-    and its parts: host pack (host clock), upload and device (CUDA events
-    from before the upload to after it, and from there to the copy of the
-    detections back), the host's enqueue of the pyramid, and the wait
-    for the result (host clock)."""
+    and its parts: host pack, the host's enqueue of the pyramid and the
+    wait for the result (host clock). On a GPU the same again on the eager
+    path (`eager_*`, the detector's trace set) with its upload and device
+    time (CUDA events from before the upload to after it, and from there to
+    the copy of the detections back): the replayed graph has no phase
+    marks."""
     cuda = det.devices[0].type == "cuda"
-    det.detect_batch([inputs[-1]])  # warm-up: batch 1's first call
-    rows = []
-    for i in range(runs):
-        t0 = time.perf_counter()
-        packed = det.pack_inputs([inputs[i % len(inputs)]])
-        t1 = time.perf_counter()
-        if cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-            det.trace = [("start", start)]
-        pending = det.detect_batch_async(packed)
-        t2 = time.perf_counter()
-        det._fetch(pending)
-        t3 = time.perf_counter()
-        row = {"total_ms": 1e3 * (t3 - t0), "pack_ms": 1e3 * (t1 - t0),
-               "enqueue_ms": 1e3 * (t2 - t1), "wait_ms": 1e3 * (t3 - t2)}
-        if cuda:
-            marks = dict(det.trace)
+
+    def timed(trace: bool) -> dict:
+        for _ in range(2):  # warm-up: batch 1's first call, then its capture
+            det.detect_batch([inputs[-1]])
+        rows = []
+        for i in range(runs):
+            t0 = time.perf_counter()
+            packed = det.pack_inputs([inputs[i % len(inputs)]])
+            t1 = time.perf_counter()
+            if trace:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                det.trace = [("start", start)]
+            pending = det.detect_batch_async(packed)
+            t2 = time.perf_counter()
+            det._fetch(pending)
+            t3 = time.perf_counter()
+            row = {"total_ms": 1e3 * (t3 - t0), "pack_ms": 1e3 * (t1 - t0),
+                   "enqueue_ms": 1e3 * (t2 - t1), "wait_ms": 1e3 * (t3 - t2)}
+            if trace:
+                marks = dict(det.trace)
+                row["upload_ms"] = start.elapsed_time(marks["upload"])
+                row["device_ms"] = marks["upload"].elapsed_time(marks["d2h"])
+            rows.append(row)
+        return {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+
+    out = timed(False)
+    if cuda:
+        try:
+            out.update({f"eager_{k}": v for k, v in timed(True).items()})
+        finally:
             det.trace = None
-            row["upload_ms"] = start.elapsed_time(marks["upload"])
-            row["device_ms"] = marks["upload"].elapsed_time(marks["d2h"])
-        rows.append(row)
-    return {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+    return out
 
 
 def run(det, inputs: Sequence, *, iters: int, depth: int = 3, windows: int = 5) -> dict:
@@ -179,6 +196,9 @@ def run(det, inputs: Sequence, *, iters: int, depth: int = 3, windows: int = 5) 
 
     from tinyfaces_tpu_torch.utils.instruments import peak_gib, reset_peak
 
+    # from the first call on: a replayed graph allocates nothing, its
+    # capture takes the memory
+    reset_peak(dev)
     t0 = time.perf_counter()
     det.detect_batch(make_inputs())
     warmup_s = time.perf_counter() - t0
@@ -210,7 +230,6 @@ def run(det, inputs: Sequence, *, iters: int, depth: int = 3, windows: int = 5) 
 
     try:
         warm_rate, _ = run_window()
-        reset_peak(dev)
         rates, last = [], None
         for _ in range(windows):
             r, last = run_window()
@@ -263,16 +282,18 @@ def main(argv=None, *, stage_sizes: Sequence[int] = RESNET101_STAGES, hw: tuple 
                wire_Bpx=wire_bpx, h2d_probe_MiBps=link, flops_per_image=flops,
                **achieved(flops, out["value"], device_name(dev), kind))
     lat = out["batch1"]
-    split = (f"upload {lat['upload_ms']:.2f} ms, device {lat['device_ms']:.2f} ms (CUDA events); "
-             if "upload_ms" in lat else "")
+    split = (f"; eager path (traced): {lat['eager_total_ms']:.2f} ms, upload "
+             f"{lat['eager_upload_ms']:.2f} ms, device {lat['eager_device_ms']:.2f} ms (CUDA events), "
+             f"host enqueue {lat['eager_enqueue_ms']:.2f} ms"
+             if "eager_upload_ms" in lat else "")
     share = f", {100 * out['share_of_peak']:.1f}% of the {kind} peak" if out["share_of_peak"] else ""
     print(f"# {name}; transfer={transfer} wire {wire_bpx:.3f} B/px; H2D probe "
           + (f"{link:.0f} MiB/s (8 MiB pinned, CUDA events); " if link else "not measured (cpu); ")
           + f"warm-up {out['warmup_s']:.1f} s; window rates "
           f"{[round(r, 2) for r in out['window_rates']]} img/s (median of {windows} after one warm "
           f"window of {out['warm_window_rate']:.2f}); batch-1 latency {lat['total_ms']:.2f} ms: host "
-          f"pack {lat['pack_ms']:.2f} ms, {split}host enqueue {lat['enqueue_ms']:.2f} ms, wait "
-          f"{lat['wait_ms']:.2f} ms (medians of 5); peak memory "
+          f"pack {lat['pack_ms']:.2f} ms, host enqueue {lat['enqueue_ms']:.2f} ms, wait "
+          f"{lat['wait_ms']:.2f} ms{split} (medians of 5); peak memory "
           + (f"{out['peak_gib']:.2f} GiB" if out["peak_gib"] is not None else "not measured (cpu)")
           + f"; {flops / 1e12:.4f} TFLOP/image -> {out['tflops']:.2f} TFLOP/s{share}; last image "
           f"{out['last_image_detections']} detections"

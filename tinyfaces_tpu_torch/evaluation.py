@@ -35,6 +35,34 @@ rows, computed whole on the first card and then sliced); the score maps
 come back to it for decode and NMS. `shard="auto"` is spatial for a batch
 smaller than the card count and batch otherwise (spatial.choose_mode).
 
+The compiled pyramid. The JAX package jits `fused_pyramid` once per static
+key (tinyfaces_tpu/evaluation.py:453-457); its counterpart here is one
+`torch.cuda.CUDAGraph` per `ProgramKey` and replica: the JAX program's
+static arguments (scales, h0p, w0p, prob_thresh, nms_thresh, transfer) plus
+what the port's shapes add (the replica's batch rows, the model's dtype,
+the resample kernel and the `pil` taps). A key's first call runs the
+pyramid eagerly (cuDNN's and cuBLAS's set-up, the device constants); its
+second call captures it and replays the graph, and every later call copies
+the wire and the sizes into the graph's static input buffers and replays
+it, so a one-shot caller never pays for a capture. The NMS inside is
+kernel N1 (ops/nms_kernel.py), so nothing in the pyramid reads the host.
+
+Memory: each CUDA replica has one side stream and one memory pool
+(`GraphCache`). Every eager run on the replica (a key's first call, a
+traced batch) and every capture runs on that stream with all of its
+allocations in that pool, so an eager run reuses the blocks that the
+graphs leave free between replays instead of needing its own memory beside
+theirs; replays are serialised on the replica's current stream, and each
+packed output is copied out on that stream before the next replay. When an
+eager run runs out of memory in the pool (its free blocks cut to other
+keys' sizes), the replica's graphs and pool are released and the run is
+made once more in a fresh pool.
+
+The pyramid runs eagerly in three cases only (`eager_reason`): on a device
+that is not a GPU (the CPU tests), under shard "spatial" (halos copied
+across cards, parallel/spatial.py) and while `trace` is set (its CUDA
+events split the eager run). A capture that fails raises.
+
 `EvalConfig.fold_stem` (the default, as in the JAX package) folds the 2x
 level's exact-2.0 upsample into conv1 (ops/stemfold.py): the stem runs at
 1x on the unpacked canvas and the (B, 3, 2H, 2W) canvas is never made; the
@@ -46,6 +74,9 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
+import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple, Optional, Sequence
@@ -61,6 +92,7 @@ from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
 from tinyfaces_tpu_torch.models.resnet import ARCH_STAGES
 from tinyfaces_tpu_torch.ops.decode import decode_scores, valid_template_mask
 from tinyfaces_tpu_torch.ops.jpeg import dct4_batch_to_normalized, dct_batch_to_normalized
+from tinyfaces_tpu_torch.ops import nms_kernel
 from tinyfaces_tpu_torch.ops.nms import batched_nms_padded
 from tinyfaces_tpu_torch.ops.pilresize import max_taps, resize_pil_batch
 from tinyfaces_tpu_torch.ops.resize import resize_batch
@@ -186,14 +218,136 @@ class DeviceResult(NamedTuple):
     events: tuple
 
 
+class ProgramKey(NamedTuple):
+    """What one captured pyramid is specialised to: the JAX program's
+    static arguments (fused_pyramid's keyword-only parameters, in order),
+    then the replica's batch rows, the model's dtype, the resample kernel
+    and the `pil` taps (None on "linear")."""
+
+    scales: tuple
+    h0p: int
+    w0p: int
+    prob_thresh: float
+    nms_thresh: float
+    transfer: str
+    batch: int
+    dtype: torch.dtype
+    resample: str
+    taps: Optional[tuple]
+
+
+class CapturedPyramid:
+    """One pyramid captured into a CUDA graph over static buffers: `images`
+    (the wire) and `meta` (true and level sizes) are filled before each
+    replay, `out` holds the packed (B, K, 6) detections after it. Captured
+    on `cache`'s stream into its pool, from host tensors shaped as the
+    inputs of every replay."""
+
+    def __init__(self, run, images_h: torch.Tensor, meta_h: torch.Tensor, cache: "GraphCache"):
+        with torch.cuda.use_mem_pool(cache.pool, cache.device):  # released with the pool
+            self.images = torch.empty(images_h.shape, dtype=images_h.dtype, device=cache.device)
+            self.meta = torch.empty(meta_h.shape, dtype=meta_h.dtype, device=cache.device)
+        t0 = time.perf_counter()
+        n1 = nms_kernel.captured_count
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: the caller's pack thread may allocate pinned memory
+        # while this thread captures
+        with torch.cuda.graph(self.graph, pool=cache.pool.id, stream=cache.stream,
+                              capture_error_mode="thread_local"):
+            self.out = run(self.images, self.meta)
+        self.capture_s = time.perf_counter() - t0
+        self.n1_launches = nms_kernel.captured_count - n1
+
+    def replay(self, images: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
+        self.images.copy_(images, non_blocking=True)
+        self.meta.copy_(meta, non_blocking=True)
+        self.graph.replay()
+        nms_kernel.count_replay(self.n1_launches)
+        return self.out
+
+
+class GraphCache:
+    """One CUDA replica's compiled pyramids: the captured graph of every
+    ProgramKey called at least twice, the keys called once (`warm`), and
+    the side stream and memory pool that every eager run and capture on
+    the replica uses (see the module docstring). `releases` counts the
+    times the graphs were dropped for memory. A thread captures only after
+    it has run the pyramid eagerly here (`warmed_here`): cuDNN and cuBLAS
+    create a thread's handles at its first use, a call a capture may not
+    make."""
+
+    def __init__(self, device: torch.device):
+        # "cuda" means the current card; the pool's routing needs its index
+        self.device = device if device.index is not None else torch.device(
+            "cuda", torch.cuda.current_device())
+        with torch.cuda.device(self.device):  # the pool lives on the current card
+            self.stream = torch.cuda.Stream(self.device)
+            self.pool = torch.cuda.MemPool()
+        self.graphs: dict = {}
+        self.warm: set = set()
+        self.releases = 0
+        self._thread = threading.local()
+
+    def eager(self, run, *args) -> torch.Tensor:
+        """`run(*args)` on the side stream, after the current stream's work
+        (which then waits for it), with this thread's allocations in the
+        pool. Out of memory there (the pool's free blocks cut to other
+        keys' sizes, which the allocator does not hand back while the pool
+        lives): release the graphs and the pool, and run once more."""
+        try:
+            out = self._pooled(run, *args)
+        except torch.cuda.OutOfMemoryError:
+            out = None
+        if out is None:
+            self.release()
+            self.releases += 1
+            out = self._pooled(run, *args)
+        self._thread.warmed = True
+        return out
+
+    def warmed_here(self) -> bool:
+        """Whether the calling thread has run an eager pyramid here."""
+        return getattr(self._thread, "warmed", False)
+
+    def _pooled(self, run, *args) -> torch.Tensor:
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        try:
+            with torch.cuda.stream(self.stream), torch.cuda.use_mem_pool(self.pool, self.device):
+                out = run(*args)
+        finally:
+            current.wait_stream(self.stream)
+        out.record_stream(current)
+        return out
+
+    def release(self) -> None:
+        """Drop every graph and warm key, and the pool (its memory goes
+        back to the card); a key's next call starts again from its eager
+        run."""
+        torch.cuda.synchronize(self.device)  # replays in flight read the pool
+        self.graphs.clear()
+        self.warm.clear()
+        with torch.cuda.device(self.device):
+            self.pool = torch.cuda.MemPool()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def reserved_bytes(self) -> int:
+        """Bytes the pool holds on the card."""
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(self.pool.id))
+
+
 class Replica(NamedTuple):
     """One device's copy of the detector: its model in eval mode, the
-    templates and, per scale, the template ids that may fire there."""
+    templates, per scale the template ids that may fire there, and on a
+    GPU its GraphCache (None elsewhere)."""
 
     device: torch.device
     model: TinyFacesDetector
     templates: torch.Tensor
     valid_ids: dict
+    cache: Optional[GraphCache]
 
 
 class PyramidDetector:
@@ -207,8 +361,9 @@ class PyramidDetector:
     canvas from the wire), then "resize s" (the folded stem at the 2x level),
     "forward s" and "decode s" per level s, "nms" and "d2h"; the time of a
     phase is the elapsed time from the previous event (with several
-    devices, of the first device's piece). None (the default) records
-    nothing."""
+    devices, of the first device's piece). The events split the eager run,
+    so a traced batch runs eagerly, not from its captured graph. None (the
+    default) records nothing."""
 
     def __init__(
         self,
@@ -241,7 +396,8 @@ class PyramidDetector:
         self.shard = shard
         models = [model] + [copy.deepcopy(model) for _ in devices[1:]]
         self.replicas = [
-            Replica(d, m.to(d).eval(), torch.tensor(self.templates, dtype=torch.float32, device=d), {})
+            Replica(d, m.to(d).eval(), torch.tensor(self.templates, dtype=torch.float32, device=d),
+                    {}, GraphCache(d) if d.type == "cuda" else None)
             for d, m in zip(devices, models)]
         self.cfg = cfg or DetectorConfig()
         self.transfer = transfer
@@ -262,6 +418,36 @@ class PyramidDetector:
             ids = np.nonzero(self._template_mask(scale))[0]
             replica.valid_ids[scale] = torch.tensor(ids, dtype=torch.int64, device=replica.device)
         return replica.valid_ids[scale]
+
+    def eager_reason(self, device: torch.device, mode: str) -> Optional[str]:
+        """Why a batch on `device` under shard mode `mode` runs eagerly,
+        or None when it replays its captured graph."""
+        if device.type != "cuda":
+            return "not a GPU"
+        if mode == "spatial":
+            return "shard spatial"
+        if self.trace is not None:
+            return "trace"
+        return None
+
+    def release_graphs(self) -> None:
+        """Drop every replica's captured pyramids, its warm keys and their
+        pool (GraphCache.release)."""
+        for r in self.replicas:
+            if r.cache is not None:
+                r.cache.release()
+
+    def graph_stats(self) -> list[dict]:
+        """Per GPU replica: its captured keys with their capture seconds and
+        N1 launches each, the keys called once and not captured, the times
+        its graphs were released for memory, and the bytes its pool
+        reserves."""
+        return [{"device": str(r.device), "graphs": len(r.cache.graphs),
+                 "capture_s": [p.capture_s for p in r.cache.graphs.values()],
+                 "n1_launches": [p.n1_launches for p in r.cache.graphs.values()],
+                 "warm_keys": len(r.cache.warm), "releases": r.cache.releases,
+                 "pool_reserved_bytes": r.cache.reserved_bytes()}
+                for r in self.replicas if r.cache is not None]
 
     def _mark(self, phase: str) -> None:
         if self.trace is not None:
@@ -397,7 +583,8 @@ class PyramidDetector:
         if self._pinned():
             meta_t = meta_t.pin_memory()
         replicas, forward = self.replicas, None
-        if choose_mode(len(replicas), b, self.shard) == "spatial":
+        mode = choose_mode(len(replicas), b, self.shard)
+        if mode == "spatial":
             # the whole batch on the first card, each level's forward split by rows
             models = [r.model for r in replicas]
             replicas = replicas[:1]
@@ -412,13 +599,27 @@ class PyramidDetector:
             with self._on(replica):
                 taps = (self._pil_taps(meta[rows], scales, packed.h0p, packed.w0p)
                         if self.ec.resample == "pil" else None)
+
+                def run(images_d, meta_d, replica=replica, taps=taps, mark=mark):
+                    return self._fused_pyramid(
+                        replica, images_d, meta_d[:, :2], meta_d[:, 2:].reshape(-1, len(scales), 2),
+                        scales=scales, h0p=packed.h0p, w0p=packed.w0p,
+                        prob_thresh=float(prob_thresh), nms_thresh=float(nms_thresh),
+                        pil_taps=taps, mark=mark, forward=forward)
+
+                if self.eager_reason(replica.device, mode) is None:
+                    key = ProgramKey(scales, packed.h0p, packed.w0p, float(prob_thresh),
+                                     float(nms_thresh), self.transfer, rows.stop - rows.start,
+                                     self.dtype, self.ec.resample, None if taps is None else tuple(taps))
+                    outs.append(self._replay(replica, key, run, packed.host[rows], meta_t[rows]))
+                    continue
                 meta_d = meta_t[rows].to(replica.device, non_blocking=True)
                 images_d = packed.host[rows].to(replica.device, non_blocking=True)
                 mark("upload")
-                outs.append(self._fused_pyramid(
-                    replica, images_d, meta_d[:, :2], meta_d[:, 2:].reshape(-1, len(scales), 2),
-                    scales=scales, h0p=packed.h0p, w0p=packed.w0p, prob_thresh=float(prob_thresh),
-                    nms_thresh=float(nms_thresh), pil_taps=taps, mark=mark, forward=forward))
+                if replica.cache is not None and mode != "spatial":  # traced: in the graphs' pool
+                    outs.append(replica.cache.eager(run, images_d, meta_d))
+                else:
+                    outs.append(run(images_d, meta_d))
         if not self._pinned():
             return DeviceResult(torch.cat(outs), ())
         host = torch.empty((b, *outs[0].shape[1:]), dtype=outs[0].dtype, pin_memory=True)
@@ -430,6 +631,27 @@ class PyramidDetector:
                 events.append(torch.cuda.Event())
                 events[-1].record()
         return DeviceResult(host, tuple(events))
+
+    @staticmethod
+    def _replay(replica: Replica, key: ProgramKey, run, images_h: torch.Tensor,
+                meta_h: torch.Tensor) -> torch.Tensor:
+        """The packed output of `run(images, meta)` on the replica's card
+        for the key: its first call uploads and runs eagerly in the
+        replica's pool; its second captures the graph (on a thread that
+        has run eagerly here; on another, it runs eagerly once more); that
+        call and every later one copy the pinned host rows into the graph's
+        static buffers and replay it on the current stream."""
+        cache = replica.cache
+        prog = cache.graphs.get(key)
+        if prog is None and (key not in cache.warm or not cache.warmed_here()):
+            out = cache.eager(run, images_h.to(replica.device, non_blocking=True),
+                              meta_h.to(replica.device, non_blocking=True))
+            cache.warm.add(key)
+            return out
+        if prog is None:
+            prog = cache.graphs[key] = CapturedPyramid(run, images_h, meta_h, cache)
+            cache.warm.discard(key)
+        return prog.replay(images_h, meta_h)
 
     @staticmethod
     def _replica_forward(replica: Replica, x: torch.Tensor, fold: bool) -> torch.Tensor:

@@ -33,6 +33,7 @@ import torch
 
 from tinyfaces_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
 from tinyfaces_tpu_torch.data.jpegdct import Z_KEEP_C, Z_KEEP_Y, ZIGZAG, _idct_matrix, layout_of
+from tinyfaces_tpu_torch.data.targets import device_constant
 
 
 def _zigzag_basis() -> np.ndarray:
@@ -213,8 +214,8 @@ def ycc_planes_to_normalized(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor
     g = yf - 0.344136 * uf - 0.714136 * vf
     b = yf + 1.772 * uf
     x = torch.stack([r, g, b], dim=-1).clamp_(0.0, 255.0) / 255.0
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32).to(x.device, non_blocking=True)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32).to(x.device, non_blocking=True)
+    mean = device_constant(IMAGENET_MEAN, torch.float32, x.device)
+    std = device_constant(IMAGENET_STD, torch.float32, x.device)
     return ((x - mean) / std).to(dtype)
 
 

@@ -6,19 +6,28 @@ higher-ranked box is > the threshold, and invalid (padding) rows are never
 kept. The ranking is a stable descending sort, as `jnp.argsort` is stable,
 so equal scores keep their input order.
 
-The keep set is the Jacobi fixpoint of `keep[i] = valid[i] and no kept j
-ranked above i overlaps i` over the dense (n, n) overlap mask: row i is
-final once every row that can suppress it is, so the fixpoint is the exact
-greedy result, reached in as many sweeps as the longest suppression chain.
-Only the first n = (most valid rows of any image) ranked rows take part;
-the host reads n once per call and tests convergence once every
-`_SWEEPS_PER_CHECK` sweeps, never once per box.
+The keep step follows the tensors' device, as K1 does:
+
+* CUDA tensors launch the hand-written kernel N1 (ops/nms_kernel.py,
+  csrc/nms.cu), or raise if it cannot be built or launched. It reads each
+  image's valid extent on the device and makes no host read, as the JAX
+  module promises: the whole NMS lives on the device, and the pyramid
+  around it is captured into one CUDA graph (evaluation.PyramidDetector).
+* CPU tensors take the plain version, `_plain_keep`: `_fixpoint_keep`, the
+  Jacobi fixpoint of `keep[i] = valid[i] and no kept j ranked above i overlaps i`
+  over the dense (n, n) overlap mask. Row i is final once every row that
+  can suppress it is, so the fixpoint is the exact greedy result, reached
+  in as many sweeps as the longest suppression chain. Only the first n =
+  (most valid rows of any image) ranked rows take part; the host reads n
+  once per call and tests convergence once every `_SWEEPS_PER_CHECK`
+  sweeps, which costs nothing on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tinyfaces_tpu_torch.ops import nms_kernel
 from tinyfaces_tpu_torch.ops.boxes import pairwise_iou
 
 _SWEEPS_PER_CHECK = 4
@@ -51,7 +60,8 @@ def nms(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Greedy NMS per image. Returns `(order, keep)`: `order` is the (B, N)
     stable descending-score permutation and `keep` the (B, N) bool mask in
-    that order."""
+    that order. The keep step runs in N1 on CUDA tensors and in the plain
+    fixpoint on CPU tensors."""
     b, n = scores.shape
     if valid is None:
         valid = torch.ones(b, n, dtype=torch.bool, device=scores.device)
@@ -61,6 +71,17 @@ def nms(
     boxes_sorted = boxes.gather(1, order[..., None].expand(b, n, 4))
     valid_sorted = valid.gather(1, order)
 
+    if boxes.device.type == "cpu":
+        return order, _plain_keep(boxes_sorted, valid_sorted, iou_threshold)
+    return order, nms_kernel._launch(boxes_sorted, valid_sorted, iou_threshold)
+
+
+def _plain_keep(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
+                iou_threshold: float) -> torch.Tensor:
+    """The plain keep step on any device (the CPU route of nms): the
+    fixpoint over the first n = most valid rows of any image, in chunks of
+    images that bound the (images, n, n) mask. Reads n on the host."""
+    b = valid_sorted.shape[0]
     keep = valid_sorted.clone()
     # Valid rows rank first, so rows past the largest valid count neither
     # keep nor suppress.
@@ -70,7 +91,7 @@ def nms(
         for s in range(0, b, chunk):
             keep[s:s + chunk, :nv] = _fixpoint_keep(
                 boxes_sorted[s:s + chunk, :nv], valid_sorted[s:s + chunk, :nv], iou_threshold)
-    return order, keep
+    return keep
 
 
 def batched_nms_padded(

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tinyfaces_tpu_torch.data.targets import device_constant
 from tinyfaces_tpu_torch.ops.resize import resize_weights
 
 # G[k, d+2]: coefficient of x[n+d] inside u[2n+k-3], for stem tap k = 0..6.
@@ -51,7 +52,7 @@ del _k, _m, _t
 def fold_stem_kernel(w7: torch.Tensor) -> torch.Tensor:
     """(O, C, 7, 7) stride-2 stem weights -> (O, C, 5, 5) folded stride-1
     weights, in float32."""
-    g = torch.as_tensor(PHASE_G, dtype=torch.float32, device=w7.device)
+    g = device_constant(tuple(map(tuple, PHASE_G.tolist())), torch.float32, w7.device)
     return torch.einsum("ka,lb,ockl->ocab", g, g, w7.to(torch.float32))
 
 

@@ -10,6 +10,12 @@ Port of tinyfaces_tpu/serving.py on every wire of PyramidDetector:
     batch shapes stays small;
   * batches are queued with detect_batch_async, so packing and upload of the
     next batch overlap device compute of the current one.
+
+On a GPU each padded batch shape replays its own captured pyramid
+(evaluation.PyramidDetector): the ladder bounds a service run to
+log2(max_batch) + 1 graphs per canvas bucket (5 at the default 16: batch
+1, 2, 4, 8 and 16), each captured at its second batch (its first runs
+eagerly), all in the replica's one memory pool.
 """
 
 from __future__ import annotations

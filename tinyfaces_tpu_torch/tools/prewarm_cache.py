@@ -10,6 +10,7 @@ hash of their source and flags (its cache: a later run loads them as they
 are):
 
   * csrc/dense_assignment.cu, the K1 kernel (nvcc, sm_90a);
+  * csrc/nms.cu, the N1 kernel, the pyramid's NMS (nvcc, sm_90a);
   * csrc/tinyfaces_native.cpp, the augmentation engine (host C++);
   * csrc/jpeg_dct.cpp, the JPEG entropy decoder and packers (host C++).
 
@@ -32,11 +33,11 @@ from pathlib import Path
 def builds(with_kernel: bool) -> dict:
     """{library name: loader} of the port's native libraries."""
     from tinyfaces_tpu_torch.data import jpegdct, native
-    from tinyfaces_tpu_torch.ops import assignment_kernel
+    from tinyfaces_tpu_torch.ops import assignment_kernel, nms_kernel
 
     out = {"tinyfaces_native": native.load, "jpeg_dct": jpegdct.load}
     if with_kernel:
-        out = {"dense_assignment": assignment_kernel._kernel, **out}
+        out = {"dense_assignment": assignment_kernel._kernel, "nms": nms_kernel._kernel, **out}
     return out
 
 
@@ -64,7 +65,7 @@ def main(argv=None) -> dict:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda",
-                    help="cuda builds the kernel too; cpu builds the host libraries only")
+                    help="cuda builds the kernels too; cpu builds the host libraries only")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     t0 = time.perf_counter()

@@ -73,11 +73,13 @@ def run_level(service, inputs, offered_load, duration_s, seed=0):
 
 
 def warm_ladder(service, inputs, max_batch: int) -> None:
-    """One group of every power-of-two size up to max_batch."""
+    """Two groups of every power-of-two size up to max_batch (on a GPU a
+    batch shape's first call runs eagerly and its second captures)."""
     n = 1
     while n <= max_batch:
-        for f in [service.submit(inputs[i % len(inputs)]) for i in range(n)]:
-            f.result()
+        for _ in range(2):
+            for f in [service.submit(inputs[i % len(inputs)]) for i in range(n)]:
+                f.result()
         n *= 2
 
 
