@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (tinyfaces_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--against OTHER_CHECKOUT] [--spatial-only | --compiled-only]
+    python3 chip_smoke.py [--n1-against OTHER_CHECKOUT] [--e2e-against OTHER_CHECKOUT]
 
 Phases, each printing its findings; any failure raises and exits non-zero
 (`--against` also builds another checkout's K1 and times it in turns with
@@ -8,7 +9,11 @@ this one, other/this/this/other, at phase 2's timed scenes;
 `--spatial-only` runs phase 26 alone after its set-up, phase 5's
 calibrated model and phase 13's tree, e.g. over four cards;
 `--compiled-only` runs phase 29 alone after its set-up, phase 5's
-calibrated model and the JPEG fixtures):
+calibrated model and the JPEG fixtures; `--n1-against` and
+`--e2e-against` run no phase: they hold another checkout's N1 (through
+its wrapper `nms_kernel._launch`, whatever its kernel's C entry point),
+and its whole bench, against this one's in turns, each turn a child
+process, then exit):
 
   0. device: needs CUDA; prints the card's name and power limit and turns
      TF32 off, so float32 means float32;
@@ -228,12 +233,15 @@ calibrated model and the JPEG fixtures):
      its share matched at IoU >= 0.99; the captures' seconds, graphs and
      pool bytes; (c) at batch 1 one replay and one eager call under
      torch.cuda.set_sync_debug_mode("error"); (a) N1 against
-     nms_bitmask_reference and the plain fixpoint, keep masks bit-equal, on
-     (b)'s decode outputs at batch 32 and 1 (bf16, fp32) and synthetic
+     nms_blocked_reference and the plain fixpoint, keep masks bit-equal, on
+     (b)'s decode outputs at batch 32 and 1 (bf16, fp32), synthetic
      scenes (valid counts 0, 1, 63, 64, 65, N; equal scores; zero-area
-     boxes; a suppression chain 200 deep), thresholds 0.3 and 0.5; N1
-     timed (a call, a graph replay) beside the plain keep step and the
-     bitmask reference at B = 32 and 1, with nms_bound; (d) on jpegdct
+     boxes; a suppression chain 200 deep), 4000 rows all valid at batch
+     32, invalid rows interleaved below valid ones, NaN coordinates, N =
+     33 and 4001, and N = 16,000 past the rows staged in shared memory,
+     thresholds 0.3 and 0.5; N1 timed (a call, a graph replay) beside the
+     plain keep step and the blocked reference at B = 32 and 1 and on the
+     all-valid batch, with nms_bound; (d) on jpegdct
      bf16, the eager path (trace set) and the replayed one: host launch
      calls, device launches and busy share per batch-1 call
      (tools.device_profile's trace), batch-1 latency (median of 20), b32
@@ -280,6 +288,7 @@ import copy
 import ctypes
 import gc
 import hashlib
+import inspect
 import json
 import math
 import os
@@ -321,6 +330,8 @@ from tinyfaces_tpu_torch.tools import (device_profile, eval_sweep_bench, jpegdct
                                        loader_bench, pipeline_profile, profile_model,
                                        serving_bench, train_bench, wire_stats)
 from tinyfaces_tpu_torch.trainer import Trainer, load_checkpoint, save_checkpoint
+from tinyfaces_tpu_torch import bench as bench_mod
+from tinyfaces_tpu_torch.utils.instruments import build_detector as instrument_detector
 from tinyfaces_tpu_torch.utils import cuda_build
 
 ROOT = Path(__file__).resolve().parent
@@ -355,10 +366,8 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def graph_ms(fn, runs: int = 20) -> float:
-    """Median of `runs` CUDA-event timings of one replay of fn() captured
-    as a CUDA graph: the device time of fn's kernels back to back, without
-    the host's time to enqueue them (which cuda_ms includes)."""
+def capture_graph(fn) -> torch.cuda.CUDAGraph:
+    """fn() captured as a CUDA graph, after three warm-up calls."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the capturing stream, as capture wants
@@ -368,7 +377,14 @@ def graph_ms(fn, runs: int = 20) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fn()
-    return cuda_ms(graph.replay, runs=runs)
+    return graph
+
+
+def graph_ms(fn, runs: int = 20) -> float:
+    """Median of `runs` CUDA-event timings of one replay of fn() captured
+    as a CUDA graph: the device time of fn's kernels back to back, without
+    the host's time to enqueue them (which cuda_ms includes)."""
+    return cuda_ms(capture_graph(fn).replay, runs=runs)
 
 
 def scene(rng, b, g, counts=None, input_hw=(500, 500)):
@@ -3003,28 +3019,33 @@ WIRE_SETTINGS = (("rgb", "linear"), ("jpegdct", "linear"), ("jpegdct4", "linear"
                  ("yuv420", "linear"), ("rgb", "pil"))
 
 
+def clustered_scene(rng, n: int, n_valid: int, equal: bool = False) -> tuple:
+    """An NMS scene of n candidates: (boxes (n, 4) f32, scores (n,) f32,
+    valid (n,) bool). Clusters of n // 60 boxes on a 0.5 px grid, one in 16
+    of zero width or height; scores on a 1/8 grid or all equal; n_valid
+    valid rows at random places."""
+    k = max(2, n // 60)
+    c = rng.uniform(50, 950, (k, 2))[rng.integers(0, k, n)] + rng.normal(0, 6, (n, 2))
+    wh = rng.uniform(20, 60, (n, 2))
+    zero = rng.uniform(size=n) < 1 / 16
+    wh[zero, rng.integers(0, 2, int(zero.sum()))] = 0.0
+    b = (np.round(np.concatenate([c - wh / 2, c + wh / 2], 1) * 2) / 2).astype(np.float32)
+    s = (np.full(n, 0.5) if equal else rng.integers(0, 40, n) / 8.0 - 2.0).astype(np.float32)
+    v = np.zeros(n, bool)
+    v[rng.permutation(n)[:n_valid]] = True
+    return b, s, v
+
+
 def n1_scenes(rng, n: int = 4000) -> list:
     """Phase 29's synthetic NMS scenes of n candidates: (label, boxes (n, 4)
-    f32, scores (n,) f32, valid (n,) bool). Clustered boxes on a 0.5 px grid
-    with one in 16 of zero width or height; valid counts 0, 1, 63, 64, 65
-    and n; all scores equal; and a chain of 200 boxes 3 px apart (IoU 7/13
-    with the next, 1/4 with the one after), ranked in order, so that each
-    kept box's suppression frees the box after next."""
-    def clustered(n_valid, equal=False):
-        k = n // 60
-        c = rng.uniform(50, 950, (k, 2))[rng.integers(0, k, n)] + rng.normal(0, 6, (n, 2))
-        wh = rng.uniform(20, 60, (n, 2))
-        zero = rng.uniform(size=n) < 1 / 16
-        wh[zero, rng.integers(0, 2, int(zero.sum()))] = 0.0
-        b = (np.round(np.concatenate([c - wh / 2, c + wh / 2], 1) * 2) / 2).astype(np.float32)
-        s = (np.full(n, 0.5) if equal else rng.integers(0, 40, n) / 8.0 - 2.0).astype(np.float32)
-        v = np.zeros(n, bool)
-        v[rng.permutation(n)[:n_valid]] = True
-        return b, s, v
-
-    scenes = [(f"valid {k}", *clustered(k)) for k in (0, 1, 63, 64, 65, n)]
-    scenes.append(("equal scores", *clustered(n, equal=True)))
-    b, s, v = clustered(n)
+    f32, scores (n,) f32, valid (n,) bool). Clustered scenes with valid
+    counts 0, 1, 63, 64, 65 and n; all scores equal; and a chain of 200
+    boxes 3 px apart (IoU 7/13 with the next, 1/4 with the one after),
+    ranked in order, so that each kept box's suppression frees the box
+    after next."""
+    scenes = [(f"valid {k}", *clustered_scene(rng, n, k)) for k in (0, 1, 63, 64, 65, n)]
+    scenes.append(("equal scores", *clustered_scene(rng, n, n, equal=True)))
+    b, s, v = clustered_scene(rng, n, n)
     x = 3.0 * np.arange(200, dtype=np.float32)
     b[:200] = np.stack([x, np.zeros_like(x), x + 10, np.full_like(x, 10)], 1) + 2000.0
     s[:200] = 10.0 - np.arange(200, dtype=np.float32) / 256
@@ -3042,18 +3063,46 @@ def rank_for_nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor)
 
 
 def n1_against_plain(label: str, boxes_s: torch.Tensor, valid_s: torch.Tensor, thr: float) -> int:
-    """N1's keep mask on the card equal, bit for bit, to nms_bitmask_reference's
+    """N1's keep mask on the card equal, bit for bit, to nms_blocked_reference's
     and to the plain fixpoint's on the same inputs; returns the largest
     difference (0)."""
     got = nms_kernel._launch(boxes_s, valid_s, thr)
-    ref = nms_kernel.nms_bitmask_reference(boxes_s, valid_s, thr)
+    ref = nms_kernel.nms_blocked_reference(boxes_s, valid_s, thr)
     fix = nms_ops._plain_keep(boxes_s, valid_s, thr)
     torch.cuda.synchronize()
     err = max(int((got.int() - ref.int()).abs().max()), int((got.int() - fix.int()).abs().max()))
     check(err == 0 and not bool((got & ~valid_s).any()),
-          f"N1 {label} thr {thr}: {int((got != ref).sum())} rows differ from the bitmask reference, "
+          f"N1 {label} thr {thr}: {int((got != ref).sum())} rows differ from the blocked reference, "
           f"{int((got != fix).sum())} from the fixpoint")
     return err
+
+
+def n1_edge_inputs(rng, dev: torch.device) -> dict:
+    """Rank-sorted keep-step inputs beside the pyramid's and
+    n1_timed_inputs': invalid rows interleaved below valid ones (each
+    image's extent past its valid count); one valid box in 20 with a NaN
+    coordinate; N = 33 and 4001, not multiples of 64; and N = 16,000 at
+    B = 2, all valid, past the rows N1 stages in shared memory
+    (nms_kernel.smem_rows), so the rest are read from device memory."""
+    def batch(n, n_valid, b):
+        return [torch.from_numpy(np.stack(x)).to(dev)
+                for x in zip(*[clustered_scene(rng, n, n_valid) for _ in range(b)])]
+
+    out = {}
+    bx, vd = rank_for_nms(*batch(4000, 4000, 4))
+    holes = torch.from_numpy(rng.uniform(size=tuple(vd.shape)) < 0.3).to(dev)
+    holes[:, -1] = False  # the last row stays valid: extent N, about 0.7 N valid
+    out["interleaved invalid B4"] = (bx, vd & ~holes)
+    bx, vd = rank_for_nms(*batch(4000, 3000, 4))
+    nan = torch.from_numpy(rng.uniform(size=tuple(vd.shape)) < 0.05).to(dev) & vd
+    coord = torch.from_numpy(rng.integers(0, 4, tuple(vd.shape))).to(dev)
+    bx = bx.clone()
+    bx[nan, coord[nan]] = float("nan")
+    out["NaN boxes B4"] = (bx, vd)
+    for n in (33, 4001):
+        out[f"N={n} B3"] = rank_for_nms(*batch(n, n - n // 10, 3))
+    out["N=16000 B2"] = rank_for_nms(*batch(16000, 16000, 2))
+    return out
 
 
 class NmsRecorder:
@@ -3106,50 +3155,66 @@ def detections_of(packed: np.ndarray) -> list:
 
 
 def phase_n1(recorded: dict, dev: torch.device, name: str) -> dict:
-    """Phase 29 (a): N1 against nms_bitmask_reference and the plain fixpoint
-    on the card, keep masks bit-equal: the decode outputs phase 5's model
-    gives the 768x1024 pyramid at batch 32 (bf16 and fp32, recorded by (b)),
-    and the synthetic scenes in one batch, each at thresholds 0.3 and 0.5.
-    Then N1 timed (CUDA events, median of 20: a call from the host, and the
-    device time of a CUDA-graph replay) beside the plain keep step (median
-    of 20) and the bitmask reference (median of 3) at B = 32 and B = 1 of
-    the bf16 decode outputs, with nms_bound of those inputs and N1's keep
-    mask (the pairs under a kept row)."""
+    """Phase 29 (a): N1 against nms_blocked_reference and the plain fixpoint
+    on the card, keep masks bit-equal, each at thresholds 0.3 and 0.5: the
+    decode outputs phase 5's model gives the 768x1024 pyramid at batch 32
+    and 1 (bf16 and fp32, recorded by (b)), the synthetic scenes in one
+    batch, 32 scenes of 4000 rows all valid, and n1_edge_inputs. Then N1
+    timed (CUDA events, median of 20: a call from the host, and the device
+    time of a CUDA-graph replay) beside the plain keep step (median of 20)
+    and the blocked reference (median of 3) on n1_timed_inputs (B = 32 and
+    B = 1 of the bf16 decode outputs and of bench's, and the all-valid B =
+    32), with
+    nms_bound of those inputs and N1's keep mask (the pairs under a kept
+    row)."""
     t0 = time.perf_counter()
     scenes = n1_scenes(np.random.default_rng(29))
     syn = [torch.from_numpy(np.stack(x)).to(dev) for x in list(zip(*scenes))[1:]]
+    timed = n1_timed_inputs(recorded["bf16 b32"], dev)
+    inputs = {f"synthetic B={len(scenes)}": rank_for_nms(*syn),
+              **{label: rank_for_nms(*x) for label, x in recorded.items()},
+              "all valid B32": timed["all valid B32"], **n1_edge_inputs(np.random.default_rng(32), dev)}
+    geometry = {}
+    for label, (bx, vd) in inputs.items():  # the library's launch against the hand-counted copies
+        b, n = vd.shape
+        g = geometry[label] = nms_kernel.launch_geometry(b, n, dev)
+        check((g["cluster"], g["threads"]) == nms_kernel.launch_shape(b)
+              and g["staged_rows"] == nms_kernel.smem_rows(n, optin=g["smem_optin"], threads=g["threads"]),
+              f"N1 {label}: the library launches {g}, nms_kernel counts {nms_kernel.launch_shape(b)} and "
+              f"{nms_kernel.smem_rows(n, optin=g['smem_optin'], threads=g['threads'])} staged rows")
+    over = inputs["N=16000 B2"]
+    staged = geometry["N=16000 B2"]["staged_rows"]
+    check(int(nms_kernel.valid_extent(over[1]).min()) > staged,
+          f"N=16000: the valid extent does not pass the {staged} rows staged in shared memory")
     err, checked = 0, []
     for thr in (0.3, 0.5):
-        err = max(err, n1_against_plain("synthetic", *rank_for_nms(*syn), thr))
-        checked.append(f"synthetic B={len(scenes)} thr {thr}")
-        for label, (boxes, scores, valid) in recorded.items():
-            err = max(err, n1_against_plain(label, *rank_for_nms(boxes, scores, valid), thr))
+        for label, (bx, vd) in inputs.items():
+            err = max(err, n1_against_plain(label, bx, vd, thr))
             checked.append(f"{label} thr {thr}")
-    boxes_s, valid_s = rank_for_nms(*recorded["bf16 b32"])
     timing = {}
-    for b in (32, 1):
-        bx, vd = boxes_s[:b].contiguous(), valid_s[:b].contiguous()
+    for label, (bx, vd) in timed.items():
+        bx, vd = bx.contiguous(), vd.contiguous()
         ext = nms_kernel.valid_extent(vd)
-        bound = nms_kernel.nms_bound(ext, bx.shape[1], nms_kernel._launch(bx, vd, 0.3))
-        timing[f"B{b}"] = {
+        bound = nms_kernel.nms_bound(vd, nms_kernel._launch(bx, vd, 0.3))
+        timing[label] = r = {
             "ms": cuda_ms(lambda: nms_kernel._launch(bx, vd, 0.3)),
             "device_ms": graph_ms(lambda: nms_kernel._launch(bx, vd, 0.3)),
             "plain_ms": cuda_ms(lambda: nms_ops._plain_keep(bx, vd, 0.3)),
-            "bitmask_reference_ms": cuda_ms(lambda: nms_kernel.nms_bitmask_reference(bx, vd, 0.3),
+            "blocked_reference_ms": cuda_ms(lambda: nms_kernel.nms_blocked_reference(bx, vd, 0.3),
                                             runs=3, warmup=1),
             "n": bx.shape[1], "valid_extent_max": int(ext.max()), "valid_extent_mean": float(ext.float().mean()),
             **bound}
-        r = timing[f"B{b}"]
-        print(f"N1 at B={b}, N={r['n']} (bf16 decode outputs, valid extent mean {r['valid_extent_mean']:.0f}, "
-              f"max {r['valid_extent_max']}): {r['ms']:.4f} ms a call, {r['device_ms']:.4f} ms on the device "
-              f"(graph replay), plain keep step {r['plain_ms']:.3f} ms, bitmask reference "
-              f"{r['bitmask_reference_ms']:.1f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
-              f"{r['needed_pairs']} pairs under a kept row of {r['valid_pairs']} valid; "
-              f"operations {r['operations_ms']:.4f}, bytes {r['bytes_ms']:.5f}, mask bytes "
-              f"{r['mask_bytes_ms']:.4f}, serial chain {r['serial_chain_ms']:.4f}) ({name})", flush=True)
-    print(f"N1 keep masks bit-equal to the bitmask reference and the fixpoint on {len(checked)} inputs: "
-          f"{checked} ({time.perf_counter() - t0:.1f} s)", flush=True)
-    return {"max_abs_err": err, "checked": checked, **timing}
+        print(f"N1 {label}, N={r['n']} (valid extent mean {r['valid_extent_mean']:.0f}, max "
+              f"{r['valid_extent_max']}): {r['ms']:.4f} ms a call, {r['device_ms']:.4f} ms on the device "
+              f"(graph replay), plain keep step {r['plain_ms']:.3f} ms, blocked reference "
+              f"{r['blocked_reference_ms']:.1f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{r['needed_pairs']} tests for {r['kept']} kept rows, of {r['valid_pairs']} valid pairs; "
+              f"operations {r['operations_ms']:.4f}, bytes {r['bytes_ms']:.5f}, resolve chain "
+              f"{r['serial_chain_ms']:.4f}) ({name})", flush=True)
+    print(f"N1 keep masks bit-equal to the blocked reference and the fixpoint on {len(checked)} inputs "
+          f"(N=16000: rows past {staged} read from device memory; launch geometry as counted: "
+          f"{json.dumps(geometry)}): {checked} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return {"max_abs_err": err, "checked": checked, "smem_rows_16000": staged, "geometry": geometry, **timing}
 
 
 def phase_graphs(calibrated: TinyFacesDetector, templates_np, fixtures: dict, dev: torch.device,
@@ -3404,6 +3469,203 @@ def phase_compiled_pyramid(calibrated: TinyFacesDetector, templates_np, fixtures
     return out, launches
 
 
+# --- N1 against another checkout's, in turns: --n1-against, --e2e-against --
+
+
+def kernel_split(fn, tag: str, trace_dir: Path, runs: int = 20) -> dict:
+    """Device microseconds per call of each CUDA kernel fn() launches, by
+    name: the kernel events of torch.profiler's trace over `runs` replays
+    of fn captured as a CUDA graph ("graph") and over `runs` eager calls
+    ("eager"). The traces go to trace_dir."""
+    graph = capture_graph(fn)
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for mode, step in (("graph", graph.replay), ("eager", fn)):
+        step()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                step()
+            torch.cuda.synchronize()
+        path = trace_dir / f"n1_split_{tag}_{mode}.json"
+        prof.export_chrome_trace(str(path))
+        sums: dict = {}
+        for e in json.loads(path.read_text()).get("traceEvents", []):
+            if e.get("ph") == "X" and e.get("cat") == "kernel":
+                name = e["name"].replace("(anonymous namespace)::", "").split("(")[0]
+                sums[name] = sums.get(name, 0.0) + e["dur"] / runs
+        check(sums, f"torch.profiler recorded no kernel of N1 ({tag}, {mode})")
+        out[mode] = sums
+    return out
+
+
+def record_nms_inputs(calibrated: TinyFacesDetector, templates_np, dev: torch.device) -> tuple:
+    """The decode outputs that phase 29 (b) records: the bf16 rgb pyramid of
+    phase 5's model on its 32 pink 768x1024 images, eager, as handed to
+    batched_nms_padded (boxes, scores, valid)."""
+    pink = pink_images(np.random.default_rng(29), [(768, 1024)] * 32)
+    det = PyramidDetector(bf16_copy(calibrated, dev), templates_np, DetectorConfig(), EvalConfig(),
+                          device=dev, transfer="rgb")
+    packed = det.pack_inputs(pink)
+    with eager(det), NmsRecorder() as rec:
+        result_of(det, packed)
+    del det
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec.calls[0]
+
+
+def record_bench_nms_inputs(dev: torch.device) -> tuple:
+    """The decode outputs that bench's detector (seeded bf16 weights, not
+    recalibrated, `jpegdct`) hands batched_nms_padded for bench's 32 JPEG
+    images: phase 22's regime, where every candidate is valid and most are
+    kept."""
+    det = instrument_detector(dev, transfer="jpegdct")
+    packed = det.pack_inputs(bench_mod.bench_inputs("jpegdct", 32, 768, 1024))
+    with eager(det), NmsRecorder() as rec:
+        result_of(det, packed)
+    del det
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec.calls[0]
+
+
+def n1_timed_inputs(recorded: tuple, dev: torch.device) -> dict:
+    """N1's timed inputs, rank-sorted: the bf16 decode outputs at batch 32
+    and 1; 32 clustered scenes of 4000 candidates with every row valid; and
+    bench's decode outputs at batch 32 and 1 (record_bench_nms_inputs)."""
+    boxes_s, valid_s = rank_for_nms(*recorded)
+    rng = np.random.default_rng(31)
+    full = [torch.from_numpy(np.stack(x)).to(dev)
+            for x in zip(*[clustered_scene(rng, 4000, 4000) for _ in range(32)])]
+    bench_s = rank_for_nms(*record_bench_nms_inputs(dev))
+    return {"bf16 B32": (boxes_s, valid_s), "bf16 B1": (boxes_s[:1], valid_s[:1]),
+            "all valid B32": rank_for_nms(*full), "bench B32": bench_s,
+            "bench B1": tuple(x[:1] for x in bench_s)}
+
+
+# One turn of --n1-against, run in a child from a checkout's root with
+# `python -c`, so it takes that checkout's N1 through the wrapper's
+# contract, nms_kernel._launch(boxes, valid, threshold) -> keep, whatever
+# its C entry point: on the rank-sorted inputs saved at argv[1], the keep
+# masks at threshold 0.3 (saved to argv[2]), the device time of a graph
+# replay (graph_ms) and the split by kernel (kernel_split, traces to
+# argv[3], tagged argv[4]). The helpers are this script's own.
+N1_TURN = """
+import json, sys
+from pathlib import Path
+import numpy as np
+import torch
+from tinyfaces_tpu_torch.ops import nms_kernel
+{helpers}
+out, keeps = {{}}, {{}}
+for label, (bx, vd) in torch.load(sys.argv[1]).items():
+    bx, vd = bx.cuda().contiguous(), vd.cuda().contiguous()
+    fn = lambda: nms_kernel._launch(bx, vd, 0.3)
+    keeps[label] = fn().cpu()
+    out[label] = {{"device_ms": graph_ms(fn),
+                  "split_us": kernel_split(fn, label.replace(" ", "_") + "_" + sys.argv[4], Path(sys.argv[3]))}}
+torch.save(keeps, sys.argv[2])
+print(json.dumps(out))
+"""
+
+
+def n1_against(checkout: Path, recorded: tuple, dev: torch.device, name: str) -> dict:
+    """`--n1-against DIR`, after phase_n1: N1_TURN from DIR and from this
+    checkout in turns (other, this, this, other), each in a child process,
+    on n1_timed_inputs of the `recorded` decode outputs: every turn's keep
+    masks bit-equal to this process's N1, each turn's graph-replay device
+    time (CUDA events, median of 20) and split by kernel, with nms_bound."""
+    inputs = {label: (bx.contiguous(), vd.contiguous())
+              for label, (bx, vd) in n1_timed_inputs(recorded, dev).items()}
+    keep = {label: nms_kernel._launch(bx, vd, 0.3) for label, (bx, vd) in inputs.items()}
+    work = ROOT / "build" / "chip_smoke" / "n1_turns"
+    work.mkdir(parents=True, exist_ok=True)
+    torch.save({label: (bx.cpu(), vd.cpu()) for label, (bx, vd) in inputs.items()}, work / "inputs.pt")
+    code = N1_TURN.format(helpers="\n\n".join(inspect.getsource(f) for f in (check, cuda_ms, capture_graph,
+                                                                                graph_ms, kernel_split)))
+    turns = []
+    for i, (who, cwd) in enumerate((("other", checkout), ("this", ROOT), ("this", ROOT), ("other", checkout))):
+        keeps = work / f"keep{i}_{who}.pt"
+        proc = subprocess.run([sys.executable, "-c", code, str(work / "inputs.pt"), str(keeps), str(GRAPH_DIR),
+                               f"turn{i}_{who}"], cwd=cwd.resolve(), capture_output=True, text=True,
+                              timeout=600, env={**os.environ, "PYTHONPATH": str(cwd.resolve())})
+        (work / f"turn{i}_{who}.log").write_text(proc.stdout + proc.stderr)
+        check(proc.returncode == 0, f"N1 turn {i} ({who}, {cwd}) exited {proc.returncode}:\n"
+                                    f"{proc.stderr[-3000:]}")
+        got = torch.load(keeps)
+        for label, k in keep.items():
+            check(torch.equal(got[label], k.cpu()), f"N1 {label}: turn {i}'s ({who}, {cwd}) keep mask differs "
+                                                    f"from this process's")
+        turns.append((who, json.loads(proc.stdout.strip().splitlines()[-1])))
+    out = {"card": name}
+    for label, (bx, vd) in inputs.items():
+        ext = nms_kernel.valid_extent(vd)
+        bound = nms_kernel.nms_bound(vd, keep[label])
+        ms = [(who, t[label]["device_ms"]) for who, t in turns]
+        out[label] = {"turns_device_ms": ms, "split_us": [(who, t[label]["split_us"]) for who, t in turns],
+                      "valid_extent_mean": float(ext.float().mean()), "valid_extent_max": int(ext.max()),
+                      **bound}
+        print(f"N1 {label} (extent mean {float(ext.float().mean()):.0f}, max {int(ext.max())}, kept "
+              f"{bound['kept']}): device ms in turns {[(w, round(t, 4)) for w, t in ms]}; split (us a call) "
+              f"{json.dumps(out[label]['split_us'])}; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+              f"{bound['needed_pairs']} tests) ({name})", flush=True)
+    return out
+
+
+# One turn of --e2e-against, run in a child from a checkout's root with
+# `python -c`, so it imports that checkout's package: bench.run as
+# `python -m tinyfaces_tpu_torch.bench` runs it (b32 jpegdct, seeded bf16
+# weights, 8 batches a window, depth 3, 5 windows), bench's batch-1
+# latency split again over 50 images (host pack, enqueue, and the wait for
+# the replayed pyramid and its copy back), then the detector's graph pool.
+E2E_TURN = """
+import json, torch
+from tinyfaces_tpu_torch import bench
+from tinyfaces_tpu_torch.utils.instruments import build_detector, card
+dev = torch.device("cuda", 0)
+det = build_detector(dev, transfer="jpegdct")
+inputs = bench.bench_inputs("jpegdct", 32, 768, 1024)
+out = bench.run(det, inputs, iters=8, depth=3, windows=5)
+lat = bench.latency_split(det, inputs, runs=50)
+s = det.graph_stats()[0]
+print(json.dumps({"img_per_s": out["value"], "window_rates": out["window_rates"],
+                  "batch1_ms": out["batch1"]["total_ms"], "batch1_50": lat, "peak_gib": out["peak_gib"],
+                  "pool_gib": s["pool_reserved_bytes"] / 2**30, "graphs": s["graphs"],
+                  "card": card(dev)}))
+"""
+
+
+def e2e_against(checkout: Path, name: str) -> list:
+    """`--e2e-against DIR`: E2E_TURN from DIR and from this checkout in
+    turns (other, this, this, other, twice), each in a child process with
+    the card to itself: b32 jpegdct img/s, batch-1 latency (replayed) and
+    its parts, peak memory and the graph pool's GiB."""
+    rows = []
+    log_dir = ROOT / "build" / "chip_smoke" / "e2e_turns"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    for i, (who, cwd) in enumerate((("other", checkout), ("this", ROOT), ("this", ROOT),
+                                    ("other", checkout)) * 2):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", E2E_TURN], cwd=cwd.resolve(), capture_output=True,
+                              text=True, timeout=900, env={**os.environ, "PYTHONPATH": str(cwd.resolve())})
+        (log_dir / f"turn{i}_{who}.log").write_text(proc.stdout + proc.stderr)
+        check(proc.returncode == 0, f"e2e turn {i} ({who}, {cwd}) exited {proc.returncode}:\n"
+                                    f"{proc.stderr[-3000:]}")
+        row = {"who": who, **json.loads(proc.stdout.strip().splitlines()[-1]),
+               "turn_s": time.perf_counter() - t0}
+        rows.append(row)
+        b1 = row["batch1_50"]
+        print(f"e2e turn {i} ({who}): b32 jpegdct {row['img_per_s']:.3f} img/s (windows "
+              f"{[round(r, 2) for r in row['window_rates']]}), batch-1 {row['batch1_ms']:.2f} ms "
+              f"(median of 5), over 50 {b1['total_ms']:.2f} ms = pack {b1['pack_ms']:.2f} + enqueue "
+              f"{b1['enqueue_ms']:.2f} + wait {b1['wait_ms']:.2f}, "
+              f"peak {row['peak_gib']:.3f} GiB, graph pool {row['pool_gib']:.4f} GiB over "
+              f"{row['graphs']} graphs ({row['card']}; {row['turn_s']:.0f} s)", flush=True)
+    return rows
+
+
 WORKERS = {"dist_steps": worker_dist_steps, "stop": worker_stop, "eval": worker_eval}
 
 
@@ -3422,6 +3684,13 @@ def main() -> None:
     ap.add_argument("--compiled-only", action="store_true",
                     help="phase 29 alone, after its set-up (phase 5's calibrated model, the JPEG "
                          "fixtures)")
+    ap.add_argument("--n1-against", type=Path, default=None,
+                    help="another checkout: after phase 5's set-up, phase 29 (a) on the bf16 decode "
+                         "outputs, then both checkouts' N1 timed and split by kernel in turns on them, "
+                         "each turn a child process, then exit")
+    ap.add_argument("--e2e-against", type=Path, default=None,
+                    help="another checkout: bench b32 jpegdct, batch-1 latency and the graph pool "
+                         "of both in turns, each in a child process, then exit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs an NVIDIA GPU")
@@ -3445,6 +3714,23 @@ def main() -> None:
           f"compiled and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
 
     templates_np = load_templates()
+    if args.n1_against is not None or args.e2e_against is not None:
+        out = {}
+        if args.e2e_against is not None:  # first: the children need the card to themselves
+            out["e2e_turns"] = e2e_against(args.e2e_against, name)
+        if args.n1_against is not None:
+            model = init_model(TinyFacesDetector(), torch.Generator().manual_seed(0)).to(dev)
+            calibrate(model, pink_images(np.random.default_rng(5), [(192, 256), (176, 248)]), dev)
+            rec = record_nms_inputs(model, templates_np, dev)
+            del model
+            out["n1"] = phase_n1({"bf16 b32": rec, "bf16 b1": tuple(t[:1] for t in rec)}, dev, name)
+            out["n1_turns"] = n1_against(args.n1_against, rec, dev, name)
+        print(json.dumps(out))
+        print(name)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return
     if args.spatial_only:
         model = init_model(TinyFacesDetector(), torch.Generator().manual_seed(0)).to(dev)
         calibrate(model, pink_images(np.random.default_rng(5), [(192, 256), (176, 248)]), dev)
@@ -3566,15 +3852,20 @@ def main() -> None:
         "route": "cuda",
         "source": "tinyfaces_tpu_torch/csrc/nms.cu",
         "replaces": "tinyfaces_tpu/ops/nms.py:42,119 (the JAX NMS's device loops; not a Pallas kernel)",
+        "design": "one launch, a cluster of up to 8 blocks an image (launch_shape); boxes, dead-row bitset "
+                  "and per-warp live lists in shared memory; 64-row chunks resolved by the leader, forward "
+                  "suppression by kept rows",
         "launches": n1_launches + n1_graph_launches,
         "launches_by_path": {"pyramid_phases_5_7": n1_launches,
                              "compiled_pyramid_phase_29": n1_graph_launches},
         "max_abs_err": n1["max_abs_err"],
-        "ms": n1["B32"]["ms"], "device_ms": n1["B32"]["device_ms"], "plain_ms": n1["B32"]["plain_ms"],
-        "bitmask_reference_ms": n1["B32"]["bitmask_reference_ms"],
-        "bound_ms": n1["B32"]["bound_ms"], "bound_by": n1["B32"]["bound_by"],
+        "ms": n1["bf16 B32"]["ms"], "device_ms": n1["bf16 B32"]["device_ms"],
+        "plain_ms": n1["bf16 B32"]["plain_ms"],
+        "blocked_reference_ms": n1["bf16 B32"]["blocked_reference_ms"],
+        "bound_ms": n1["bf16 B32"]["bound_ms"], "bound_by": n1["bf16 B32"]["bound_by"],
         "library_ms": None,  # no torchvision on the machine; no other single call computes it
-        "B1": n1["B1"],
+        "B1": n1["bf16 B1"], "all_valid_B32": n1["all valid B32"], "bench_B32": n1["bench B32"],
+        "bench_B1": n1["bench B1"],
     }]}))
     print(name)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -218,7 +218,7 @@ def test_nms_cuda_route_makes_no_host_read(monkeypatch):
 
     def plain_launch(boxes, valid, thr):
         calls.append(boxes.device.type)
-        return nms_kernel.nms_bitmask_reference(boxes, valid, thr)
+        return nms_kernel.nms_blocked_reference(boxes, valid, thr)
 
     monkeypatch.setattr(nms_kernel, "_launch", plain_launch)
     b, n = 3, 200
@@ -246,7 +246,7 @@ def test_fused_pyramid_makes_no_host_read(transfer, resample, monkeypatch):
 
     def plain_launch(boxes, valid, thr):
         calls.append(tuple(boxes.shape))
-        return nms_kernel.nms_bitmask_reference(boxes, valid, thr)
+        return nms_kernel.nms_blocked_reference(boxes, valid, thr)
 
     monkeypatch.setattr(nms_kernel, "_launch", plain_launch)
     ec = EvalConfig(**{**EC.__dict__, "resample": resample})

@@ -17,10 +17,11 @@ The keep step follows the tensors' device, as K1 does:
   Jacobi fixpoint of `keep[i] = valid[i] and no kept j ranked above i overlaps i`
   over the dense (n, n) overlap mask. Row i is final once every row that
   can suppress it is, so the fixpoint is the exact greedy result, reached
-  in as many sweeps as the longest suppression chain. Only the first n =
-  (most valid rows of any image) ranked rows take part; the host reads n
-  once per call and tests convergence once every `_SWEEPS_PER_CHECK`
-  sweeps, which costs nothing on the CPU.
+  in as many sweeps as the longest suppression chain. Only the first n
+  ranked rows take part, n the largest valid extent of any image (one past
+  its last valid rank); the host reads n once per call and tests
+  convergence once every `_SWEEPS_PER_CHECK` sweeps, which costs nothing
+  on the CPU.
 """
 
 from __future__ import annotations
@@ -79,13 +80,15 @@ def nms(
 def _plain_keep(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
                 iou_threshold: float) -> torch.Tensor:
     """The plain keep step on any device (the CPU route of nms): the
-    fixpoint over the first n = most valid rows of any image, in chunks of
-    images that bound the (images, n, n) mask. Reads n on the host."""
+    fixpoint over the first n = the largest valid extent of any image (one
+    past its last valid rank), in chunks of images that bound the (images,
+    n, n) mask. Reads n on the host."""
     b = valid_sorted.shape[0]
     keep = valid_sorted.clone()
-    # Valid rows rank first, so rows past the largest valid count neither
-    # keep nor suppress.
-    nv = int(valid_sorted.sum(1).max()) if b else 0
+    # Rows past the last valid one neither keep nor suppress. nms() ranks
+    # the valid rows first, so there n is the largest valid count; a mask
+    # with holes (the keep step's contract allows one) reaches further.
+    nv = int(nms_kernel.valid_extent(valid_sorted).max()) if b else 0
     if nv:
         chunk = max(1, _MAX_MASK_ELEMENTS // (nv * nv))
         for s in range(0, b, chunk):
