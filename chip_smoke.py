@@ -332,7 +332,7 @@ from tinyfaces_tpu_torch.tools import (device_profile, eval_sweep_bench, jpegdct
 from tinyfaces_tpu_torch.trainer import Trainer, load_checkpoint, save_checkpoint
 from tinyfaces_tpu_torch import bench as bench_mod
 from tinyfaces_tpu_torch.utils.instruments import build_detector as instrument_detector
-from tinyfaces_tpu_torch.utils import cuda_build
+from tinyfaces_tpu_torch.utils import cuda_build, profiling
 
 ROOT = Path(__file__).resolve().parent
 RF = dict(ofx=-1.0, ofy=-1.0, stx=8.0, sty=8.0)
@@ -1057,6 +1057,14 @@ def step_records(path: Path) -> tuple[list, list]:
             [r for r in records if r.get("event") == "epoch_end"])
 
 
+def epoch_waits_ms(spans: list) -> list:
+    """The consumer's waits on the loader's queue (its `loader.get` spans)
+    in the last epoch recorded, ms, in order."""
+    gets = [s for s in spans if s.name == "loader.get"]
+    first = max(i for i, s in enumerate(gets) if s.attrs["first"])
+    return [1e3 * (s.end - s.start) for s in gets[first:]]
+
+
 def run_train_cli(ann: Path, dataset, dev: torch.device, run_dir: Path, *extra: str):
     """`main.run` over `dataset` in `run_dir` with the CLI's defaults and
     `extra`, entered with TF32 on (as cuDNN has it in a fresh process): the
@@ -1096,15 +1104,17 @@ def phase_train_cli(templates_np, dev: torch.device, name: str) -> tuple[dict, i
         return run_train_cli(ann, dataset, dev, run_dir, *extra)
 
     overflow.reset()
-    native.counters.update(samples=0, seconds=0.0)
+    native.counters.update(samples=0)
     assignment_kernel.launch_count = 0
     torch.cuda.reset_peak_memory_stats(dev)
+    profiling.reset()
+    profiling.enable()  # the loader's waits and the C++ engine's calls, as spans
     t0 = time.perf_counter()
     full = cli(out / "full", "--epochs", "2", "--save-every", "1",
                "--metrics-log", str(out / "full.jsonl"))
     full_wall = time.perf_counter() - t0
     dropped = overflow.snapshot()["dropped_boxes"]
-    wait_ms = full.loader_wait_ms[1:]
+    wait_ms = epoch_waits_ms(profiling.spans())[1:]
     full_steps_run, full_skipped = full.step, full.skipped_steps
     del full  # at most two models live in the deterministic pair, as in the resumed run before
     gc.collect()
@@ -1123,7 +1133,9 @@ def phase_train_cli(templates_np, dev: torch.device, name: str) -> tuple[dict, i
         torch.backends.cudnn.deterministic = deterministic
     torch.cuda.synchronize(dev)
     launches = assignment_kernel.launch_count
-    samples, native_s = native.counters["samples"], native.counters["seconds"]
+    profiling.enable(False)
+    samples = native.counters["samples"]
+    native_s = sum(s.end - s.start for s in profiling.spans() if s.name == "loader.augment")
     peak = torch.cuda.max_memory_allocated(dev)
 
     per_epoch = len(dataset) // tc.batch_size
@@ -1446,6 +1458,8 @@ def phase_train_cli_jpegdct(templates_np, fixtures: dict, dev: torch.device, nam
     samples = native.counters["samples"]
     assignment_kernel.launch_count = 0
     torch.cuda.reset_peak_memory_stats(dev)
+    profiling.reset()
+    profiling.enable()
     args = train_cli.arguments([str(ann), str(ann), "--dataset-root", str(out), "--device", str(dev),
                                 "--transfer", "jpegdct", "--epochs", "2", "--save-every", "2",
                                 "--metrics-log", str(out / "run.jsonl")])
@@ -1473,7 +1487,8 @@ def phase_train_cli_jpegdct(templates_np, fixtures: dict, dev: torch.device, nam
                                      for r in recs), "per-step losses")
     check(len(ends) == 2 and ends[-1]["gt_dropped_boxes"] == dropped and dropped > 0,
           f"epoch_end gt_dropped_boxes {[r['gt_dropped_boxes'] for r in ends]}, overflow counters {dropped}")
-    wait = trainer.loader_wait_ms
+    profiling.enable(False)
+    wait = epoch_waits_ms(profiling.spans())
     del trainer
     img_s = [r["images_per_sec"] for r in ends]
     result = {"card": name, "steps": steps, "batch": tc.batch_size,
@@ -2070,9 +2085,11 @@ def phase_train_cli_yuv420(ann: Path, dataset, dev: torch.device, name: str) -> 
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     tc = TrainConfig()
-    native.counters.update(samples=0, seconds=0.0)
+    native.counters.update(samples=0)
     assignment_kernel.launch_count = 0
     torch.cuda.reset_peak_memory_stats(dev)
+    profiling.reset()
+    profiling.enable()
     t0 = time.perf_counter()
     trainer = run_train_cli(ann, dataset, dev, out / "run", "--transfer", "yuv420", "--epochs", "2",
                             "--save-every", "2", "--metrics-log", str(out / "run.jsonl"))
@@ -2089,7 +2106,8 @@ def phase_train_cli_yuv420(ann: Path, dataset, dev: torch.device, name: str) -> 
     check(len(recs) == steps and all(np.isfinite([r["loss_cls_step"], r["loss_reg_step"]]).all()
                                      for r in recs), "yuv420 CLI: per-step losses")
     check((out / "run" / "weights" / "checkpoint_2").is_file(), "yuv420 CLI: checkpoint_2 missing")
-    wait = trainer.loader_wait_ms[1:]
+    profiling.enable(False)
+    wait = epoch_waits_ms(profiling.spans())[1:]
     del trainer
     gc.collect()
     img_s = [r["images_per_sec"] for r in ends]

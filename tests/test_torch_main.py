@@ -110,6 +110,9 @@ def test_resume_is_bit_exact_and_records_match_jax(tree, tmp_path, monkeypatch):
         "--metrics-log", "metrics.jsonl", "--profile-dir", "trace"))
     assert native.counters["samples"] - samples == 8  # every sample through the C++ engine
     assert (full_dir / "trace" / "trace.json").stat().st_size > 0
+    spans = json.loads((full_dir / "trace" / "spans.json").read_text())["spans"]  # the first epoch's
+    assert [s["attrs"]["step"] for s in spans if s["name"] == "train.step"] == [0, 1]
+    assert {"loader.get", "loader.batch", "loader.decode", "loader.augment"} <= {s["name"] for s in spans}
     first, first_dir = _run(tmp_path, monkeypatch, "first", _argv(tree, "--epochs", "1",
                                                                   "--save-every", "1"))
     resumed, _ = _run(tmp_path, monkeypatch, "resumed", _argv(

@@ -20,8 +20,17 @@ device each batch is collated into pinned host memory and copied with
 
 `NativePrefetchLoader` runs the augmentation in the C++ engine
 (data/native.py) on decoded pixels, seeded as the JAX package's native
-loader is. Each loader records the consumer's wait on the queue per batch
-(`wait_ms`): the host time a step waits for its input.
+loader is.
+
+Spans (utils/profiling.py), when they record: on the consumer's thread
+`loader.get` (the wait on the queue; `ready` the batches queued at the get,
+`first` the epoch's first get, which waits out the thread pool's start) and
+`loader.upload` (the copies' enqueue); on the producer thread
+`loader.batch` (first sample submitted to collated and pinned), inside it
+`loader.collate`, then `loader.put` (blocked on a full queue: the loader is
+ahead); on the worker threads of `NativePrefetchLoader` `loader.decode` and
+`loader.augment` per sample. `batch` ties a batch's production to the get
+that consumed it.
 
 `rank`/`world` feed one process of a multi-process run, as in the JAX
 loader: `batch_size` stays the global batch, every rank computes the same
@@ -35,12 +44,13 @@ from __future__ import annotations
 
 import queue
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator
 
 import numpy as np
 import torch
+
+from tinyfaces_tpu_torch.utils.profiling import span
 
 _STOP = object()
 _PREFETCH = 4  # collated batches waiting ahead of the consumer
@@ -86,7 +96,6 @@ class PrefetchLoader:
         self.seed = seed
         self.epoch = epoch
         self.rank, self.world = rank, world
-        self.wait_ms: list[float] = []  # consumer's wait per batch of the last epoch
 
     def __len__(self) -> int:
         return len(self.dataset) // self.batch_size  # drop_last
@@ -115,7 +124,6 @@ class PrefetchLoader:
 
     def _host_batches(self, order: np.ndarray, load: Callable[[int], dict]) -> Iterator[dict]:
         nb = len(self)
-        self.wait_ms = []
         if nb == 0:
             return
         pin = self.device.type == "cuda"
@@ -124,29 +132,34 @@ class PrefetchLoader:
 
         def produce():
             try:
-                with ThreadPoolExecutor(self.workers) as pool:
+                with ThreadPoolExecutor(self.workers, thread_name_prefix="loader worker") as pool:
                     for b in range(nb):
                         if stop.is_set():
                             return
                         idxs = self._batch_indices(order, b)
-                        q.put(_collate(list(pool.map(load, (int(i) for i in idxs))), pin))
+                        with span("loader.batch", batch=b):
+                            items = list(pool.map(load, (int(i) for i in idxs)))
+                            with span("loader.collate", batch=b):
+                                host = _collate(items, pin)
+                        with span("loader.put", batch=b):
+                            q.put(host)
             except BaseException as e:  # surface worker errors to the consumer
                 q.put(e)
                 return
             q.put(_STOP)
 
-        producer = threading.Thread(target=produce, daemon=True)
+        producer = threading.Thread(target=produce, daemon=True, name="loader producer")
         producer.start()
         try:
-            while True:
-                t0 = time.perf_counter()
-                item = q.get()
-                if item is _STOP:
-                    break
+            for b in range(nb):
+                with span("loader.get", batch=b, ready=q.qsize, first=b == 0):
+                    item = q.get()
                 if isinstance(item, BaseException):
                     raise item
-                self.wait_ms.append(1000.0 * (time.perf_counter() - t0))
                 yield item
+            item = q.get()  # the producer's last word: _STOP, or its error
+            if isinstance(item, BaseException):
+                raise item
         finally:
             stop.set()
             while producer.is_alive():  # unblock a producer waiting on a full queue
@@ -159,8 +172,10 @@ class PrefetchLoader:
         if self.pack == "yuv420":
             pixels = load
             load = lambda i: _pack_yuv(pixels(i))  # noqa: E731
-        for host in self._host_batches(self._begin_epoch(), load):
-            yield {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
+        for b, host in enumerate(self._host_batches(self._begin_epoch(), load)):
+            with span("loader.upload", batch=b):
+                batch = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
+            yield batch
 
     def __iter__(self) -> Iterator[dict]:
         if self.pack == "jpegdct":
@@ -193,8 +208,11 @@ class NativePrefetchLoader(PrefetchLoader):
             np.random.SeedSequence((self.seed, epoch, 0xC0FFEE))).integers(0, 2**62))
 
         def decode_and_augment(i: int) -> dict:
-            return native.native_augment_sample(
-                self.dataset._decode(i), self.dataset.samples[i].bboxes.astype(np.float32),
-                cfg.input_size, cfg.neg_thresh, cfg.max_gt, seed=base_seed + i * 0x9E3779B9)
+            with span("loader.decode", index=i):
+                image = self.dataset._decode(i)
+            with span("loader.augment", index=i):
+                return native.native_augment_sample(
+                    image, self.dataset.samples[i].bboxes.astype(np.float32),
+                    cfg.input_size, cfg.neg_thresh, cfg.max_gt, seed=base_seed + i * 0x9E3779B9)
 
         return self._device_batches(decode_and_augment)

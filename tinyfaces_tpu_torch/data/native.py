@@ -10,16 +10,15 @@ The library is built at first use (utils/cuda_build.load_host_library).
 There is no fallback: a failed build, a failed load or a wrong ABI version
 raises, and the caller names the engine it wants (Trainer(augment=...)).
 
-`counters` holds the samples augmented here and the wall seconds of the
-C++ calls, summed over the Python threads that made them, for callers that
-show which engine ran and what it cost.
+`counters` holds the samples augmented here, for callers that show which
+engine ran; the loader's `loader.augment` spans (utils/profiling.py) time
+the calls.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-import time
 from typing import Sequence
 
 import numpy as np
@@ -30,7 +29,7 @@ from tinyfaces_tpu_torch.utils.cuda_build import load_host_library
 _ABI_VERSION = 7
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-counters = {"samples": 0, "seconds": 0.0}
+counters = {"samples": 0}
 
 
 def load() -> ctypes.CDLL:
@@ -88,12 +87,11 @@ def _outputs(b: int, input_size: tuple[int, int], max_gt: int) -> dict:
             "n_kept": np.empty((b,), np.int32)}
 
 
-def _finish(out: dict, max_gt: int, seconds: float) -> dict:
+def _finish(out: dict, max_gt: int) -> dict:
     for n in out.pop("n_kept"):
         overflow.record(int(n), max_gt)
     with _lock:
         counters["samples"] += len(out["flip"])
-        counters["seconds"] += seconds
     out["gt_valid"] = out["gt_valid"].astype(bool)
     out["flip"] = out["flip"].astype(bool)
     return out
@@ -115,14 +113,13 @@ def native_augment_sample(
     if image.ndim != 3 or image.shape[2] != 3:
         raise ValueError(f"image must be (H, W, 3) uint8, got {image.shape}")
     out = _outputs(1, input_size, max_gt)
-    t0 = time.perf_counter()
     lib.tf_augment_sample(
         _ptr(image), image.shape[0], image.shape[1], _ptr(boxes), boxes.shape[0],
         input_size[0], input_size[1], ctypes.c_float(neg_thresh), max_gt, ctypes.c_uint64(seed),
         _ptr(out["image"]), _ptr(out["gt_boxes"]), _ptr(out["gt_valid"]),
         _ptr(out["paste_box"]), _ptr(out["flip"]), _ptr(out["n_kept"]),
     )
-    out = _finish(out, max_gt, time.perf_counter() - t0)
+    out = _finish(out, max_gt)
     return {"image": out["image"][0], "gt_boxes": out["gt_boxes"][0],
             "gt_valid": out["gt_valid"][0], "paste_box": out["paste_box"][0],
             "flip": bool(out["flip"][0])}
@@ -151,11 +148,10 @@ def native_augment_batch(
     ws = (ctypes.c_int * b)(*[im.shape[1] for im in images])
     nb = (ctypes.c_int * b)(*[bx.shape[0] for bx in boxes])
     out = _outputs(b, input_size, max_gt)
-    t0 = time.perf_counter()
     lib.tf_augment_batch(
         b, img_ptrs, hs, ws, box_ptrs, nb, input_size[0], input_size[1],
         ctypes.c_float(neg_thresh), max_gt, ctypes.c_uint64(seed), n_threads,
         _ptr(out["image"]), _ptr(out["gt_boxes"]), _ptr(out["gt_valid"]),
         _ptr(out["paste_box"]), _ptr(out["flip"]), _ptr(out["n_kept"]),
     )
-    return _finish(out, max_gt, time.perf_counter() - t0)
+    return _finish(out, max_gt)

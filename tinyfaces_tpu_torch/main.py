@@ -90,7 +90,8 @@ def arguments(argv=None):
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 activations (fp32 params)")
     parser.add_argument("--profile-dir", default="",
-                        help="write a torch.profiler Chrome trace of the first epoch here")
+                        help="write a torch.profiler Chrome trace of the first epoch here "
+                             "(trace.json) and the port's spans, every thread's (spans.json)")
     parser.add_argument("--max-gt", default=0, type=int,
                         help="static per-crop GT bound (0 = config default 192); "
                              "truncation past it is counted and warned "

@@ -34,6 +34,12 @@ by N). World N then computes what world 1 computes on the same global
 batch. The logged losses are all-reduced and averaged over the global
 rows; only rank 0 prints the console lines and writes the JSONL, and only
 rank 0 writes a checkpoint.
+
+A step's spans (utils/profiling.py), when they record: `train.step`
+(`Trainer.train_step`, attribute `step`) around its phases `train.targets`
+(build_targets, K1's launch inside), `train.forward`, `train.loss`,
+`train.backward` and `train.update` (the gradients' all-reduce, the rates,
+`opt.step()`); `train.replay` a captured step's replay.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ from tinyfaces_tpu_torch.ops.sampling import draw_uniforms
 from tinyfaces_tpu_torch.parallel import distributed
 from tinyfaces_tpu_torch.parallel.mesh import rank_device
 from tinyfaces_tpu_torch.utils.metrics_log import MetricsLogger
-from tinyfaces_tpu_torch.utils.profiling import StepTimer
+from tinyfaces_tpu_torch.utils.profiling import StepTimer, span
 
 # Per-group learning-rate factors (reference model.py:67-87).
 GROUP_LR_FACTORS = {
@@ -158,25 +164,30 @@ def _step_body(model, opt, batch, generator, *, cfg, templates, lr, nan_guard, d
         old_momentum = [opt.state.get(p, {}).get("momentum_buffer") for p in params]
         old_momentum = [None if m is None else m.clone() for m in old_momentum]
 
-    images, cls_maps, reg_maps = build_targets(batch, templates, generator, cfg,
-                                               noise_tensor=noise, part=part, seed=seeds)
-    out = model(images)
-    lb = detection_loss(
-        out, cls_maps, reg_maps, generator,
-        num_templates=cfg.num_templates, pos_fraction=cfg.pos_fraction,
-        sample_size=cfg.sample_size, hard_neg_thresh=cfg.hard_neg_loss_thresh,
-        uniforms=uniforms, part=part,
-    )
-    lb.total.backward()
+    with span("train.targets"):
+        images, cls_maps, reg_maps = build_targets(batch, templates, generator, cfg,
+                                                   noise_tensor=noise, part=part, seed=seeds)
+    with span("train.forward"):
+        out = model(images)
+    with span("train.loss"):
+        lb = detection_loss(
+            out, cls_maps, reg_maps, generator,
+            num_templates=cfg.num_templates, pos_fraction=cfg.pos_fraction,
+            sample_size=cfg.sample_size, hard_neg_thresh=cfg.hard_neg_loss_thresh,
+            uniforms=uniforms, part=part,
+        )
+    with span("train.backward"):
+        lb.total.backward()
     lb = LossBreakdown(*(x.detach() for x in lb))
-    if part[1] > 1:
-        distributed.all_reduce_tensors([p.grad for p in params if p.grad is not None])
-        losses = torch.stack(list(lb))
-        distributed.all_reduce_tensors([losses], kind="loss")
-        lb = LossBreakdown(*losses.unbind())
-    for g in opt.param_groups:
-        g["lr"] = lr * g["lr_factor"]
-    opt.step()
+    with span("train.update"):
+        if part[1] > 1:
+            distributed.all_reduce_tensors([p.grad for p in params if p.grad is not None])
+            losses = torch.stack(list(lb))
+            distributed.all_reduce_tensors([losses], kind="loss")
+            lb = LossBreakdown(*losses.unbind())
+        for g in opt.param_groups:
+            g["lr"] = lr * g["lr_factor"]
+        opt.step()
 
     if nan_guard:
         with torch.no_grad():
@@ -221,14 +232,16 @@ class _Captured:
         return lr, tuple((k, v.shape, v.dtype) for k, v in sorted(batch.items()))
 
     def replay(self, batch: dict, draws: dict) -> torch.Tensor:
-        for k, v in batch.items():
-            self.batch[k].copy_(v)
-        self.draws["seeds"].copy_(draws["seeds"])
-        for static, u in zip(self.draws["uniforms"], draws["uniforms"]):
-            static.copy_(u)
-        self.graph.replay()
-        assignment_kernel.count_replay(self.k1_launches)
-        return torch.stack(list(self.losses))
+        """One step. Its phase spans were recorded once, by the capture."""
+        with span("train.replay"):
+            for k, v in batch.items():
+                self.batch[k].copy_(v)
+            self.draws["seeds"].copy_(draws["seeds"])
+            for static, u in zip(self.draws["uniforms"], draws["uniforms"]):
+                static.copy_(u)
+            self.graph.replay()
+            assignment_kernel.count_replay(self.k1_launches)
+            return torch.stack(list(self.losses))
 
 
 def make_multi_train_step(model: TinyFacesDetector, opt: torch.optim.SGD, cfg: DetectorConfig,
@@ -424,7 +437,6 @@ class Trainer:
         self.class_average = AvgMeter()
         self.reg_average = AvgMeter()
         self.skipped_steps = 0  # non-finite-loss steps seen
-        self.loader_wait_ms: list[float] = []  # per batch, of the last epoch
         # one console and one JSONL per run: rank 0's
         self.metrics = MetricsLogger(self.metrics_path if self.rank == 0 else None)
 
@@ -451,9 +463,11 @@ class Trainer:
         return step_generator(self.seed, self.step, self.device)
 
     def train_step(self, batch: dict) -> LossBreakdown:
-        lb = train_step(self.model, self.opt, batch, self.step_generator(), cfg=self.cfg,
-                        templates=self.templates_t, lr=self.schedule(self.step),
-                        nan_guard=self.nan_guard)
+        """One step, the span `train.step` around its phases' spans."""
+        with span("train.step", step=self.step):
+            lb = train_step(self.model, self.opt, batch, self.step_generator(), cfg=self.cfg,
+                            templates=self.templates_t, lr=self.schedule(self.step),
+                            nan_guard=self.nan_guard)
         self.step += 1
         return lb
 
@@ -524,7 +538,6 @@ class Trainer:
                 )
             idx += 1
         drain()
-        self.loader_wait_ms = list(loader.wait_ms)
         if timer.measured_steps:
             ov = overflow.snapshot()
             if primary:
