@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (tinyfaces_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--against OTHER_CHECKOUT] [--spatial-only | --compiled-only]
+    python3 chip_smoke.py [--against OTHER_CHECKOUT] [--spatial-only | --compiled-only |
+                                                       --capture-only]
     python3 chip_smoke.py [--n1-against OTHER_CHECKOUT] [--e2e-against OTHER_CHECKOUT]
 
 Phases, each printing its findings; any failure raises and exits non-zero
@@ -9,7 +10,8 @@ this one, other/this/this/other, at phase 2's timed scenes;
 `--spatial-only` runs phase 26 alone after its set-up, phase 5's
 calibrated model and phase 13's tree, e.g. over four cards;
 `--compiled-only` runs phase 29 alone after its set-up, phase 5's
-calibrated model and the JPEG fixtures; `--n1-against` and
+calibrated model and the JPEG fixtures; `--capture-only` runs phases 27
+and 30 alone, the captured train step; `--n1-against` and
 `--e2e-against` run no phase: they hold another checkout's N1 (through
 its wrapper `nms_kernel._launch`, whatever its kernel's C entry point),
 and its whole bench, against this one's in turns, each turn a child
@@ -225,6 +227,21 @@ process, then exit):
  28. tools.h2d_probe (16 MiB payloads), tools.prewarm_cache (every
      library, cached by then) and tools.kernel_selftest (K1 against the
      plain assignment on the card: PASS).
+ 30. Trainer.train_step's captured route (trainer._CapturedSteps, next to
+     27): ResNet-101 batch 12, 500x500, fp32, deterministic cuDNN, a
+     Trainer's first 6 steps (a warm-up step, a capture and 5 replays)
+     against 6 eager train_step calls from the same weights and the same
+     step generators, while another thread pins and copies host memory as
+     the loader's producer does: the losses each step returned (kept until the last
+     step), parameters, BN statistics and momentum bit-equal or within
+     rtol 1e-6 (the largest gap printed), step_counts {"eager": 1,
+     "captured": 1, "replayed": 5}, K1 once a step; then, on default
+     cuDNN, the step with a loss read after each (as the benchmark's train
+     cell reads it), eager and replayed in turns (eager, replay, replay,
+     eager, 5 steps each, ms a step); then one `main.run --profile-dir`
+     epoch (4 steps) on the phase's own 48-image tree, the capture under
+     the profiler: its trace.json holds K1's kernel once a step, its
+     spans.json the steps' paths (eager, capture, replay, replay).
  29. the compiled pyramid and N1 (phase 5's model, EvalConfig(), the
      768x1024 bucket): (b) per wire setting (rgb, jpegdct, jpegdct4,
      yuv420, rgb with resample="pil"), fp32 (TF32 off) and bf16, batch 1
@@ -261,7 +278,7 @@ except where a trace is set: the CUDA-event splits of phases 6, 12, 16 and
 23-25 are of the eager path, and phase 26's split pyramid runs eagerly.
 
 Phases run in the order 0-4, 19, 20, 5-7, 21, 9-13, 15, 16, 23, 24, 25, 26,
-29, 8, 18, 24's training, 14, 17, 22, 27, 28 (9-13, 16, 21, 23-26 and 29
+29, 8, 18, 24's training, 14, 17, 22, 27, 30, 28 (9-13, 16, 21, 23-26 and 29
 need phase 5's model, 26 and 29 phase 13's fixtures, 18 and 24's training
 phase 8's tree and run, 22 phase 12's rate).
 
@@ -1771,7 +1788,7 @@ def phase_instruments(dev: torch.device, name: str, phase12_img_per_s: float) ->
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
     plain, remat = runs[""], runs["_remat"]
     for r in runs.values():
-        check(r["k1_launches"] == r["iters"] + 1 and np.isfinite(r["losses"]).all(),
+        check(r["k1_launches"] == r["iters"] + r["warmup_steps"] and np.isfinite(r["losses"]).all(),
               f"train_bench: K1 {r['k1_launches']} launches in {r['iters']} steps and the warm-up, "
               f"losses {r['losses']}")
         launches += r["k1_launches"]
@@ -2999,7 +3016,7 @@ def phase_multi(templates_np, dev: torch.device, name: str) -> tuple[dict, int]:
     bench = run_tool("train_bench_multi", train_bench.main, ["--multi", str(k), "--iters", "3"])
     m = bench["multi"]
     check(m["k1_launches"] == (m["iters"] + 1) * k and np.isfinite(m["losses"]).all()
-          and bench["k1_launches"] == bench["iters"] + 1,
+          and bench["k1_launches"] == bench["iters"] + bench["warmup_steps"],
           f"train_bench --multi: K1 {m['k1_launches']} and {bench['k1_launches']} launches")
     out["train_bench"] = {"multi_ms_per_step": m["ms_per_step"], "plain_ms_per_step": bench["ms_per_step"],
                           "multi_img_per_s": m["img_per_s"], "plain_img_per_s": bench["img_per_s"],
@@ -3007,6 +3024,139 @@ def phase_multi(templates_np, dev: torch.device, name: str) -> tuple[dict, int]:
     print(f"train_bench --multi {k}: {m['ms_per_step']:.2f} ms/step against the plain step's "
           f"{bench['ms_per_step']:.2f} in the same process ({name})", flush=True)
     return out, launches + m["k1_launches"]
+
+
+def phase_trainer_capture(templates_np, dev: torch.device, name: str) -> tuple[dict, int]:
+    """Phase 30: Trainer.train_step's captured route against eager steps,
+    the step timed both ways with a loss read after each, and a profiled
+    CLI epoch (see the module docstring). Returns the numbers and K1's
+    launches in the compared and the CLI's steps."""
+    from perfbench import tracefile
+    from tinyfaces_tpu_torch.bench_train import make_synthetic_train_batch
+    from tinyfaces_tpu_torch.trainer import step_generator, train_step
+
+    cfg, tc, n = DetectorConfig(), TrainConfig(batch_size=12), 6
+    rng = np.random.default_rng(30)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in make_synthetic_train_batch(
+        rng, tc.batch_size, cfg).items()} for _ in range(n)]
+    trainers = []
+    for _ in range(2):
+        model = init_model(TinyFacesDetector(), torch.Generator().manual_seed(0))
+        trainers.append(Trainer(model=model, cfg=cfg, tc=tc, templates=templates_np, device=dev, seed=3))
+        trainers[-1].setup(steps_per_epoch=100)
+    graphed_t, plain_t = trainers
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    out: dict = {"card": name, "steps": n}
+    stop = threading.Event()
+
+    def producer():
+        """What the loader's producer does beside the steps: pin a batch's
+        host memory, copy it on a stream of its own, drop it (so the host
+        allocator queries the copy's event before it reuses the block)."""
+        side = torch.cuda.Stream(dev)
+        while not stop.is_set():
+            host = torch.empty(tc.batch_size * 500 * 500 * 3, dtype=torch.uint8).pin_memory()
+            with torch.cuda.stream(side):
+                host.to(dev, non_blocking=True)
+            time.sleep(0.001)
+
+    pinner = threading.Thread(target=producer, name="phase 30 producer", daemon=True)
+    pinner.start()
+    try:
+        launches0 = assignment_kernel.launch_count
+        kept = [graphed_t.train_step(b) for b in batches]  # each read only after the last step
+        stop.set()
+        pinner.join(timeout=60)
+        check(not pinner.is_alive(), "phase 30's producer thread did not stop")
+        got = torch.stack([torch.stack(list(lb)) for lb in kept])
+        launches = assignment_kernel.launch_count - launches0
+        want = torch.stack([torch.stack(list(train_step(
+            plain_t.model, plain_t.opt, b, step_generator(plain_t.seed, i, dev), cfg=cfg,
+            templates=plain_t.templates_t, lr=plain_t.schedule(i)))) for i, b in enumerate(batches)])
+        plain_t.step = n
+        pairs = list(zip(state_of(graphed_t.model, graphed_t.opt), state_of(plain_t.model, plain_t.opt)))
+        rel = lambda a, b: float((a.double() - b.double()).abs().max() / max(float(b.double().abs().max()), 1e-30))  # noqa: E731
+        out.update(step_counts=dict(graphed_t.step_counts), k1_launches=launches,
+                   losses_bit_equal=bool(torch.equal(got, want)),
+                   state_bit_equal=all(torch.equal(a, b) for a, b in pairs),
+                   losses_max_rel_diff=rel(got, want),
+                   state_max_rel_diff=max(rel(a, b) for a, b in pairs if a.is_floating_point()))
+        check(graphed_t.step_counts == {"eager": 1, "captured": 1, "replayed": n - 1},
+              f"the captured route's steps: {graphed_t.step_counts}")
+        check(launches == n, f"the captured route: K1 {launches} launches in {n} steps")
+        check(torch.isfinite(got).all() and out["losses_max_rel_diff"] <= 1e-6
+              and out["state_max_rel_diff"] <= 1e-6,
+              f"the captured route against eager steps: losses {got.tolist()} vs {want.tolist()}, "
+              f"state max rel diff {out['state_max_rel_diff']:.3g}")
+    finally:
+        stop.set()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    print(f"Trainer.train_step, captured route, {n} steps (warm-up, capture, {n - 1} replays; a thread "
+          f"pinning and copying host memory throughout) against "
+          f"{n} eager steps, ResNet-101 batch 12 fp32, deterministic cuDNN: losses bit-equal "
+          f"{out['losses_bit_equal']} (max rel {out['losses_max_rel_diff']:.3g}), parameters/BN/momentum "
+          f"bit-equal {out['state_bit_equal']} (max rel {out['state_max_rel_diff']:.3g}), step_counts "
+          f"{out['step_counts']}, K1 {launches} launches ({name})", flush=True)
+
+    # The step with its loss read after it, eager (plain_t) and replayed
+    # (graphed_t, recaptured once for default cuDNN) in turns.
+    graphed_t.setup(steps_per_epoch=100)
+
+    def timed(t, eager: bool, steps: int = 5) -> float:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for b in batches[:steps]:
+            if eager:
+                lb = train_step(t.model, t.opt, b, t.step_generator(), cfg=cfg, templates=t.templates_t,
+                                lr=t.schedule(t.step))
+                t.step += 1
+            else:
+                lb = t.train_step(b)
+            float(lb.total)
+        return 1e3 * (time.perf_counter() - t0) / steps
+
+    timed(plain_t, True, 2)
+    timed(graphed_t, False, 2)  # its warm-up step, then the capture
+    turns = [("eager", timed(plain_t, True)), ("replay", timed(graphed_t, False)),
+             ("replay", timed(graphed_t, False)), ("eager", timed(plain_t, True))]
+    out["step_ms"] = {k: [ms for kind, ms in turns if kind == k] for k in ("eager", "replay")}
+    # the comparison's n - 1 replays, the capture's after setup() and the 10 timed
+    check(graphed_t.step_counts["replayed"] == n + 10, f"timed steps: {graphed_t.step_counts}")
+    print(f"the step with a loss read after each, default cuDNN, in turns: eager {out['step_ms']['eager']} "
+          f"ms, replayed {out['step_ms']['replay']} ms ({name})", flush=True)
+    del trainers, graphed_t, plain_t, batches, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # One profiled CLI epoch on the phase's own tree: the capture runs
+    # under the profiler, the replays' kernels reach its trace.
+    root = ROOT / "build" / "chip_smoke" / "capture"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ann, images = write_train_tree(root, np.random.default_rng(30))
+    dataset = MemoryTrainSet(ann, images, templates_np, cfg)
+    launches0 = assignment_kernel.launch_count
+    trainer = run_train_cli(ann, dataset, dev, root / "run", "--epochs", "1",
+                            "--profile-dir", str(root / "profile"))
+    cli_launches = assignment_kernel.launch_count - launches0
+    steps = trainer.step
+    counts = dict(trainer.step_counts)
+    del trainer
+    trace = json.loads((root / "profile" / "trace.json").read_text())
+    k1 = sum(1 for e in trace["traceEvents"] if e.get("cat") == "kernel"
+             and tracefile.kernel_is(e.get("name", ""), ("reduce_kernel",)))
+    spans = json.loads((root / "profile" / "spans.json").read_text())["spans"]
+    paths = [s["attrs"]["path"] for s in spans if s["name"] == "train.step"]
+    out["profiled_epoch"] = {"steps": steps, "step_counts": counts, "k1_in_trace": k1,
+                             "paths": paths, "trace_mib": (root / "profile" / "trace.json").stat().st_size / 2**20}
+    check(counts == {"eager": 1, "captured": 1, "replayed": steps - 1} and cli_launches == steps,
+          f"profiled epoch: {counts}, K1 {cli_launches} launches in {steps} steps")
+    check(paths == ["eager", "capture"] + ["replay"] * (steps - 2), f"profiled epoch's paths {paths}")
+    check(k1 == steps, f"profiled epoch: K1's kernel {k1} times in the trace of {steps} steps")
+    print(f"main.run --profile-dir, one epoch of {steps} steps: paths {paths}, K1's kernel {k1} times "
+          f"in the trace ({out['profiled_epoch']['trace_mib']:.1f} MiB) ({name})", flush=True)
+    return out, launches + cli_launches
 
 
 def phase_tools(name: str) -> dict:
@@ -3702,6 +3852,9 @@ def main() -> None:
     ap.add_argument("--compiled-only", action="store_true",
                     help="phase 29 alone, after its set-up (phase 5's calibrated model, the JPEG "
                          "fixtures)")
+    ap.add_argument("--capture-only", action="store_true",
+                    help="phases 27 and 30 alone: the captured train step of make_multi_train_step "
+                         "and of Trainer.train_step")
     ap.add_argument("--n1-against", type=Path, default=None,
                     help="another checkout: after phase 5's set-up, phase 29 (a) on the bf16 decode "
                          "outputs, then both checkouts' N1 timed and split by kernel in turns on them, "
@@ -3756,6 +3909,16 @@ def main() -> None:
         spatial = phase_spatial(model, templates_np, dev, name)
         print(f"phase 26 passed in {time.perf_counter() - start:.1f} s ({name})", flush=True)
         print(json.dumps({"spatial": spatial}))
+        print(name)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return
+    if args.capture_only:
+        multi, _ = phase_multi(templates_np, dev, name)
+        captured, _ = phase_trainer_capture(templates_np, dev, name)
+        print(f"phases 27 and 30 passed in {time.perf_counter() - start:.1f} s ({name})", flush=True)
+        print(json.dumps({"multi": multi, "trainer_capture": captured}))
         print(name)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -3829,6 +3992,7 @@ def main() -> None:
     instruments, instrument_launches = phase_instruments(dev, name, dct["bf16"]["img_per_s"])
     t0 = time.perf_counter()
     slice10["multi"], multi_launches = phase_multi(templates_np, dev, name)
+    slice10["trainer_capture"], capture_launches = phase_trainer_capture(templates_np, dev, name)
     slice10["tools"] = phase_tools(name)
     slice10["phases_26_28_s"] = t_slice10 + time.perf_counter() - t0
     dist_result["phases_18_21_s"] = t_dist
@@ -3854,13 +4018,14 @@ def main() -> None:
         "replaces": "tinyfaces_tpu/ops/pallas_assignment.py:209",
         "launches": (launches + cli_launches + dct_launches + e2e_launches + group_launches
                      + world_n_launches + stop_launches + instrument_launches + yuv_launches
-                     + multi_launches),
+                     + multi_launches + capture_launches),
         "launches_by_path": {"train_epoch": launches, "train_cli": cli_launches,
                              "train_cli_jpegdct": dct_launches, "train_cli_yuv420": yuv_launches,
                              "e2e_train_yuv420": e2e_launches,
                              "train_cli_world1_group": group_launches,
                              "world_n_all_ranks_and_world1_replays": world_n_launches, "agreed_stop_all_ranks": stop_launches,
-                             "instruments": instrument_launches, "train_multi": multi_launches},
+                             "instruments": instrument_launches, "train_multi": multi_launches,
+                             "train_captured_route": capture_launches},
         "max_abs_err": kres["max_abs_err"],
         **kres[f"G{DetectorConfig().max_gt}"],
         "library_ms": None,  # no single PyTorch call computes it

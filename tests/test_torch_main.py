@@ -112,6 +112,7 @@ def test_resume_is_bit_exact_and_records_match_jax(tree, tmp_path, monkeypatch):
     assert (full_dir / "trace" / "trace.json").stat().st_size > 0
     spans = json.loads((full_dir / "trace" / "spans.json").read_text())["spans"]  # the first epoch's
     assert [s["attrs"]["step"] for s in spans if s["name"] == "train.step"] == [0, 1]
+    assert [s["attrs"]["path"] for s in spans if s["name"] == "train.step"] == ["eager", "eager"]
     assert {"loader.get", "loader.batch", "loader.decode", "loader.augment"} <= {s["name"] for s in spans}
     first, first_dir = _run(tmp_path, monkeypatch, "first", _argv(tree, "--epochs", "1",
                                                                   "--save-every", "1"))
@@ -133,8 +134,10 @@ def test_resume_is_bit_exact_and_records_match_jax(tree, tmp_path, monkeypatch):
     assert [(r["epoch"], r["step"]) for r in steps] == [(0, 0), (0, 1), (1, 0), (1, 1)]
     assert [r["epoch"] for r in ends] == [0, 1] and ends[-1]["gt_dropped_boxes"] > 0
     assert all(np.isfinite(r["loss_cls_step"]) for r in steps)
+    assert [r["replayed_steps"] for r in ends] == [0, 0]  # the CPU's steps are eager
     jax_records = _jax_records(tree, tmp_path / "jax.jsonl")
-    assert {tuple(r) for r in records} == {tuple(r) for r in jax_records}
+    # the JAX package's keys, and the port's epoch_end adds its replays
+    assert {tuple(k for k in r if k != "replayed_steps") for r in records} == {tuple(r) for r in jax_records}
 
 
 def test_sigterm_checkpoints_and_stops(tree, tmp_path, monkeypatch):

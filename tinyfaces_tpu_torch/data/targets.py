@@ -203,8 +203,8 @@ def device_augment_dct(batch: dict, cfg: DetectorConfig, dtype=torch.float32) ->
         content = crop if content is None else torch.where((sid == s)[:, None, None, None], crop, content)
 
     mean_pixel = torch.tensor(MEAN_PIXEL, dtype=torch.float32) / 255.0
-    fill = ((mean_pixel - torch.tensor(IMAGENET_MEAN)) / torch.tensor(IMAGENET_STD)).to(
-        dev, non_blocking=True)
+    fill = device_constant(tuple(((mean_pixel - torch.tensor(IMAGENET_MEAN))
+                                  / torch.tensor(IMAGENET_STD)).tolist()), torch.float32, dev)
     rf, cf = rows.to(torch.float32)[None, :, None], cols.to(torch.float32)[:, None, :]
     inside = ((rf >= pb[:, 1, None, None]) & (rf < pb[:, 3, None, None])
               & (cf >= pb[:, 0, None, None]) & (cf < pb[:, 2, None, None]))

@@ -6,7 +6,10 @@
 Port of tools/train_bench.py: `Trainer.train_step` (normalization, K1, the
 ResNet-101 forward and backward, SGD) end to end, with each step's host
 batch made (bench_train.make_synthetic_train_batch) and uploaded inside
-the timed loop, at the reference batch size. Prints ms/step and img/s.
+the timed loop, at the reference batch size. Prints ms/step and img/s. On
+a card the Trainer's step is a replay of its captured CUDA graph of the
+step (`trainer.replays_step`), so this plain line times the replayed step;
+its warm-up step and its capture run before the clock starts.
 
 `--remat` recomputes each bottleneck in the backward pass (the model's
 `remat`). `--fast-precision` lets the fp32 convolutions and matmuls run in
@@ -35,11 +38,13 @@ from tinyfaces_tpu_torch.bench_train import make_synthetic_train_batch, pinned
 
 
 def run(trainer, make_batch: Callable[[], dict], iters: int) -> dict:
-    """One warm-up step, then `iters` timed steps, each on a fresh host
-    batch from make_batch() uploaded inside the loop; the device is
-    synchronised before the clock stops. Returns the rates, every step's
-    loss (warm-up first) and K1's launches in all of them."""
+    """One warm-up step (two where the Trainer replays a captured step: the
+    second captures), then `iters` timed steps, each on a fresh host batch
+    from make_batch() uploaded inside the loop; the device is synchronised
+    before the clock stops. Returns the rates, every step's loss (warm-up
+    first) and K1's launches in all of them."""
     from tinyfaces_tpu_torch.ops import assignment_kernel
+    from tinyfaces_tpu_torch.trainer import replays_step
     from tinyfaces_tpu_torch.utils.instruments import peak_gib, reset_peak, sync
 
     dev = torch.device(trainer.device)
@@ -51,6 +56,8 @@ def run(trainer, make_batch: Callable[[], dict], iters: int) -> dict:
     launches0 = assignment_kernel.launch_count
     t0 = time.perf_counter()
     losses = [step().total]
+    if replays_step(dev, trainer.nan_guard):
+        losses.append(step().total)
     first_s = time.perf_counter() - t0
     reset_peak(dev)
     t0 = time.perf_counter()
@@ -60,7 +67,8 @@ def run(trainer, make_batch: Callable[[], dict], iters: int) -> dict:
     dt = (time.perf_counter() - t0) / iters
     batch = trainer.tc.batch_size
     return {"first_step_s": first_s, "ms_per_step": 1e3 * dt, "img_per_s": batch / dt,
-            "losses": [float(x) for x in losses], "iters": iters, "batch": batch,
+            "losses": [float(x) for x in losses], "iters": iters,
+            "warmup_steps": len(losses) - iters, "batch": batch,
             "k1_launches": assignment_kernel.launch_count - launches0, "peak_gib": peak_gib(dev)}
 
 
@@ -156,13 +164,13 @@ def main(argv=None, *, stage_sizes: Sequence[int] = RESNET101_STAGES) -> dict:
                **achieved(flops, out["img_per_s"], device_name(dev), kind))
     if multi is not None:
         out["multi"] = multi
-    print(f"first step {out['first_step_s']:.1f} s, loss {out['losses'][0]:.1f}")
+    print(f"warm-up ({out['warmup_steps']} steps) {out['first_step_s']:.1f} s, loss {out['losses'][0]:.1f}")
     print(f"train_step[{kind}{'+remat' if args.remat else ''}] batch={args.batch}: "
           f"{out['ms_per_step']:.1f} ms/step, {out['img_per_s']:.2f} images/sec/chip, "
           f"{out['tflops']:.2f} TFLOP/s"
           + (f" ({100 * out['share_of_peak']:.1f}% of the {kind} peak)" if out["share_of_peak"] else "")
           + f"; kernel launches: dense_assignment_reductions {out['k1_launches']} in "
-          f"{args.iters + 1} steps; peak memory "
+          f"{args.iters + out['warmup_steps']} steps; peak memory "
           + (f"{out['peak_gib']:.2f} GiB" if out["peak_gib"] is not None else "not measured (cpu)")
           + f" ({out['card']})")
     print(json.dumps(out))

@@ -35,15 +35,27 @@ batch. The logged losses are all-reduced and averaged over the global
 rows; only rank 0 prints the console lines and writes the JSONL, and only
 rank 0 writes a checkpoint.
 
+On one CUDA card (one process, `nan_guard` off: `replays_step`) each of
+`Trainer.train_step`'s steps is a replay of one captured CUDA graph of the
+step (`_CapturedSteps`, which `make_multi_train_step` shares): the first
+step runs eagerly on a side stream, the next captures the step and replays
+it, and a new batch shape or learning rate captures again. Everywhere else
+(the CPU, a process group, `nan_guard`) the step is the eager `train_step`.
+`Trainer.step_counts` counts the eager steps, the captures and the replays.
+
 A step's spans (utils/profiling.py), when they record: `train.step`
-(`Trainer.train_step`, attribute `step`) around its phases `train.targets`
-(build_targets, K1's launch inside), `train.forward`, `train.loss`,
-`train.backward` and `train.update` (the gradients' all-reduce, the rates,
-`opt.step()`); `train.replay` a captured step's replay.
+(`Trainer.train_step`, attributes `step` and `path`: `eager`, `capture` or
+`replay`) around its phases `train.targets` (build_targets, K1's launch
+inside), `train.forward`, `train.loss`, `train.backward` and `train.update`
+(the gradients' all-reduce, the rates, `opt.step()`); `train.replay` a
+captured step's replay, inside `train.step`. A captured step's five phase
+spans are recorded once, by its capture: a replay records `train.step` and
+`train.replay` alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import threading
@@ -210,7 +222,10 @@ def _step_body(model, opt, batch, generator, *, cfg, templates, lr, nan_guard, d
 class _Captured:
     """One train step captured into a CUDA graph, over static buffers: the
     batch, K1's seeds and the sampling uniforms are copied in before each
-    replay, the losses read out after it."""
+    replay, the losses read out after it. The capture checks the capturing
+    thread's CUDA calls alone: the loader's threads go on pinning host
+    memory and querying its copies' events meanwhile, which would
+    invalidate a capture in the global mode."""
 
     def __init__(self, model, opt, batch: dict, draws: dict, *, cfg, templates, lr: float):
         self.batch = {k: torch.empty_like(v) for k, v in batch.items()}
@@ -222,7 +237,7 @@ class _Captured:
         opt.zero_grad(set_to_none=True)
         captured = assignment_kernel.captured_count
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.losses = _step_body(model, opt, self.batch, None, cfg=cfg, templates=templates,
                                      lr=lr, nan_guard=False, draws=self.draws)
         self.k1_launches = assignment_kernel.captured_count - captured
@@ -244,6 +259,76 @@ class _Captured:
             return torch.stack(list(self.losses))
 
 
+@contextlib.contextmanager
+def _side_stream(dev: torch.device):
+    """Run the enclosed work on a side stream of `dev` that waits for its
+    current stream, and make the current stream wait for it after: a
+    warm-up before a capture, so cuDNN's and cuBLAS's set-up happens
+    outside it. Off a card, the work runs as it is."""
+    if dev.type != "cuda":
+        yield
+        return
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        yield
+    torch.cuda.current_stream(dev).wait_stream(side)
+
+
+class _CapturedSteps:
+    """Train steps on a card as replays of one captured CUDA graph (what
+    `make_multi_train_step` and `Trainer.train_step` share). The first step
+    runs eagerly on a side stream, the warm-up; the next captures the step
+    into a `_Captured` and replays it; each later step replays it, or
+    captures again first where its `_Captured.key_of(batch, lr)` is new (a
+    batch shape, or the staircase's next rate). The old graph is dropped
+    before a new capture, so two memory pools never coexist. `drop()`
+    forgets the graph and the warm-up: the next step is eager again (a new
+    optimizer has no momentum yet, and a capture would bake in its first
+    step's)."""
+
+    def __init__(self):
+        self.graph: Optional[_Captured] = None
+        self.warm = False
+
+    def drop(self) -> None:
+        self.graph, self.warm = None, False
+
+    def path(self, batch: dict, lr: float) -> str:
+        """What `run` does next: "eager", "capture" (then replay) or "replay"."""
+        if not self.warm:
+            return "eager"
+        if self.graph is None or self.graph.key != _Captured.key_of(batch, lr):
+            return "capture"
+        return "replay"
+
+    def run(self, model, opt, batch: dict, draws: dict, *, cfg, templates, lr: float) -> torch.Tensor:
+        """One step with `draws` (step_draws' of the step); returns the (3,)
+        losses in a tensor of their own, which no later replay overwrites."""
+        path = self.path(batch, lr)
+        if path == "eager":
+            with _side_stream(batch["gt_boxes"].device):
+                losses = torch.stack(list(train_step(model, opt, batch, None, cfg=cfg,
+                                                     templates=templates, lr=lr, draws=draws)))
+            self.warm = True
+            return losses
+        if path == "capture":
+            self.graph = None  # free its pool before the next capture
+            self.graph = _Captured(model, opt, batch, draws, cfg=cfg, templates=templates, lr=lr)
+        return self.graph.replay(batch, draws)
+
+
+def replays_step(device: torch.device, nan_guard: bool) -> bool:
+    """Whether `Trainer.train_step` runs its steps through `_CapturedSteps`:
+    on a CUDA card, in one process (a process group's all-reduces are not
+    captured) and with `nan_guard` off (the captured step has no guard)."""
+    return device.type == "cuda" and distributed.world() == 1 and not nan_guard
+
+
+def _n_anchors(cfg: DetectorConfig) -> int:
+    return cfg.heatmap_size[0] * cfg.heatmap_size[1] * cfg.num_templates
+
+
 def make_multi_train_step(model: TinyFacesDetector, opt: torch.optim.SGD, cfg: DetectorConfig,
                           templates: torch.Tensor, schedule: Callable[[int], float]) -> Callable:
     """K optimizer steps per call, the counterpart of the JAX package's
@@ -256,18 +341,19 @@ def make_multi_train_step(model: TinyFacesDetector, opt: torch.optim.SGD, cfg: D
     Trainer's steps draw them), or with `draws[k]` (tests feed JAX's). The
     K steps equal K calls of train_step.
 
-    On the CPU it is a plain loop of train_step. On CUDA the step is
-    captured into one CUDA graph after a warm-up step (the first step of the
-    first call, run eagerly on a side stream), and each step is a replay:
-    the batch and the step's draws, made outside the graph from the step's
-    generator, are copied into the graph's static buffers first. The
+    On the CPU it is a plain loop of train_step. On CUDA the steps run
+    through `_CapturedSteps`, as Trainer.train_step's do on a card: the
+    first step of the first call eagerly on a side stream, the next
+    captured into one CUDA graph, and each step a replay: the batch and the
+    step's draws, made outside the graph from the step's generator, are
+    copied into the graph's static buffers first. The
     learning rate stays a Python float in the optimizer, baked into the
     graph: torch's SGD applies it as `add_(grad, alpha=-lr)`, and a tensor
     rate would take another rounding path, so one graph is captured per
     rate of the staircase schedule (and per batch shape). A capture that
     fails raises; nothing falls back to the plain loop on CUDA. One process
     only: a process group is refused."""
-    state: dict = {"graph": None}
+    steps = _CapturedSteps()
 
     def multi(batches: dict, seed: int, step: int, draws: Optional[list] = None) -> LossBreakdown:
         if distributed.world() > 1:
@@ -286,29 +372,11 @@ def make_multi_train_step(model: TinyFacesDetector, opt: torch.optim.SGD, cfg: D
                     draws=None if draws is None else draws[k]))))
                 continue
             if draws is None:
-                n_anchors = cfg.heatmap_size[0] * cfg.heatmap_size[1] * cfg.num_templates
-                d = step_draws(gen, batch["gt_boxes"].shape[0], n_anchors)
+                d = step_draws(gen, batch["gt_boxes"].shape[0], _n_anchors(cfg))
             else:
                 d = {"seeds": draws[k]["seeds"].to(dev),
                      "uniforms": tuple(u.to(dev) for u in draws[k]["uniforms"])}
-            graph = state["graph"]
-            if graph is None:
-                # warm-up: cuDNN's and cuBLAS's set-up happens outside the capture
-                side = torch.cuda.Stream(dev)
-                side.wait_stream(torch.cuda.current_stream(dev))
-                with torch.cuda.stream(side):
-                    lb = train_step(model, opt, batch, None, cfg=cfg, templates=templates,
-                                    lr=lr, draws=d)
-                    out.append(torch.stack(list(lb)))
-                torch.cuda.current_stream(dev).wait_stream(side)
-                state["graph"] = _Captured(model, opt, batch, d, cfg=cfg, templates=templates,
-                                           lr=lr)
-                continue
-            if graph.key != _Captured.key_of(batch, lr):
-                state["graph"] = graph = None  # free its pool before the next capture
-                graph = state["graph"] = _Captured(model, opt, batch, d, cfg=cfg,
-                                                   templates=templates, lr=lr)
-            out.append(graph.replay(batch, d))
+            out.append(steps.run(model, opt, batch, d, cfg=cfg, templates=templates, lr=lr))
         return LossBreakdown(*torch.stack(out).unbind(1))
 
     return multi
@@ -437,6 +505,8 @@ class Trainer:
         self.class_average = AvgMeter()
         self.reg_average = AvgMeter()
         self.skipped_steps = 0  # non-finite-loss steps seen
+        self._captured = _CapturedSteps()
+        self.step_counts = {"eager": 0, "captured": 0, "replayed": 0}
         # one console and one JSONL per run: rank 0's
         self.metrics = MetricsLogger(self.metrics_path if self.rank == 0 else None)
 
@@ -445,12 +515,14 @@ class Trainer:
             distributed.broadcast_tensors([*self.model.parameters(), *self.model.buffers()])
 
     def setup(self, steps_per_epoch: int) -> None:
+        self._captured.drop()  # its graph baked in the old optimizer's momentum
         self.opt = make_optimizer(self.model, self.tc)
         self.schedule = make_lr_schedule(self.tc, steps_per_epoch)
         self._broadcast_state()
 
     def restore(self, payload: dict) -> None:
         """Load a `load_checkpoint` payload into the model and optimizer."""
+        self._captured.drop()  # load_state_dict replaces the momentum a graph baked in
         self.model.load_state_dict(payload["model"])
         self.opt.load_state_dict(payload["optimizer"])
         self.step = int(payload["step"])
@@ -463,11 +535,25 @@ class Trainer:
         return step_generator(self.seed, self.step, self.device)
 
     def train_step(self, batch: dict) -> LossBreakdown:
-        """One step, the span `train.step` around its phases' spans."""
-        with span("train.step", step=self.step):
-            lb = train_step(self.model, self.opt, batch, self.step_generator(), cfg=self.cfg,
-                            templates=self.templates_t, lr=self.schedule(self.step),
-                            nan_guard=self.nan_guard)
+        """One step, in the span `train.step` (attribute `path`): on a card
+        where `replays_step` holds, a step of `_CapturedSteps` with the
+        draws made outside the graph from the step's generator; else the
+        eager `train_step`, its phases' spans inside."""
+        lr = self.schedule(self.step)
+        graphed = replays_step(self.device, self.nan_guard)
+        path = self._captured.path(batch, lr) if graphed else "eager"
+        with span("train.step", step=self.step, path=path):
+            if graphed:
+                draws = step_draws(self.step_generator(), batch["gt_boxes"].shape[0],
+                                   _n_anchors(self.cfg))
+                lb = LossBreakdown(*self._captured.run(self.model, self.opt, batch, draws,
+                                                       cfg=self.cfg, templates=self.templates_t,
+                                                       lr=lr).unbind())
+            else:
+                lb = train_step(self.model, self.opt, batch, self.step_generator(), cfg=self.cfg,
+                                templates=self.templates_t, lr=lr, nan_guard=self.nan_guard)
+        self.step_counts["eager" if path == "eager" else "replayed"] += 1
+        self.step_counts["captured"] += path == "capture"
         self.step += 1
         return lb
 
@@ -486,6 +572,7 @@ class Trainer:
                      world=self.world)
         timer = StepTimer(warmup=1)
         n_batches = len(loader)
+        replayed = self.step_counts["replayed"]
         # Loss scalars are fetched lazily: the host blocks on the device only
         # at logging points.
         pending: list = []
@@ -553,5 +640,6 @@ class Trainer:
                 loss_reg=self.reg_average.average,
                 images_per_sec=timer.items_per_sec,
                 gt_dropped_boxes=ov["dropped_boxes"],
+                replayed_steps=self.step_counts["replayed"] - replayed,
             )
         return timer
