@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from tinyfaces_tpu.models.detection import TinyFacesDetector as JaxDetector
 from tinyfaces_tpu.models.detection import init_model as jax_init_model
@@ -132,6 +133,65 @@ def test_batchnorm_running_var_uses_biased_variance():
     xn = x.numpy().transpose(1, 0, 2, 3).reshape(3, -1)
     np.testing.assert_allclose(bn.running_mean.numpy(), 0.1 * xn.mean(1), rtol=1e-5)
     np.testing.assert_allclose(bn.running_var.numpy(), 0.9 + 0.1 * xn.var(1, ddof=0), rtol=1e-5)
+
+
+@pytest.mark.parametrize("case,tol", [
+    ("float32", 1e-5),
+    ("bfloat16", 8e-3),  # the output and input gradient are rounded to bf16
+    ("cancels", 2e-4),  # one ulp of 100 in float32 is 7.6e-6, a tenth of a percent of the spread
+    ("remat", 1e-5),
+])
+def test_batchnorm_train_forward_matches_two_pass_float64(case, tol):
+    """Training-mode BatchNorm2d, which updates the running statistics from
+    the statistics its normalisation took, against the plain two-pass
+    computation in float64 (F.batch_norm for the output, var_mean for the
+    update): the output, the input and parameter gradients, and both
+    running buffers. `cancels` gives one channel a mean 1e3 times its
+    spread, where E[x^2] - E[x]^2 in float32 loses the variance; `remat`
+    checkpoints the layer and a ReLU (whose saved output makes the backward
+    pass recompute past the update), and the recompute must not update the
+    running statistics a second time."""
+    from tinyfaces_tpu_torch.models.resnet import BatchNorm2d, checkpointed
+
+    rng = np.random.default_rng(7)
+    n, c, h, w = 3, 5, 6, 7
+    x = rng.normal(0.5, 2.0, (n, c, h, w))
+    if case == "cancels":
+        x[:, 2] = rng.normal(100.0, 0.1, (n, h, w))
+    dtype = torch.bfloat16 if case == "bfloat16" else torch.float32
+    x = torch.from_numpy(x).to(dtype)  # both sides see the rounded values
+    g = torch.from_numpy(rng.normal(0, 1, (n, c, h, w))).to(dtype).float()
+    bn = BatchNorm2d(c).train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, c)))
+        bn.bias.copy_(torch.from_numpy(rng.uniform(-0.5, 0.5, c)))
+        bn.running_mean.copy_(torch.from_numpy(rng.uniform(-1.0, 1.0, c)))
+        bn.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, c)))
+    init = {k: v.double() for k, v in bn.named_buffers()}
+
+    x64 = x.double().requires_grad_(True)
+    w64 = bn.weight.detach().double().requires_grad_(True)
+    b64 = bn.bias.detach().double().requires_grad_(True)
+    act = F.relu if case == "remat" else (lambda t: t)
+    want = act(F.batch_norm(x64, None, None, w64, b64, True, 0.0, bn.eps))
+    (want * g.double()).sum().backward()
+    var, mean = torch.var_mean(x64.detach(), dim=(0, 2, 3), correction=0)
+    want_stats = {"running_mean": 0.9 * init["running_mean"] + 0.1 * mean,
+                  "running_var": 0.9 * init["running_var"] + 0.1 * var}
+
+    xg = x.clone().requires_grad_(True)
+    got = checkpointed(torch.nn.Sequential(bn, torch.nn.ReLU()), xg) if case == "remat" else bn(xg)
+    assert got.dtype == dtype
+    (got.float() * g).sum().backward()
+    for name, a, b in (("y", got, want), ("x.grad", xg.grad, x64.grad),
+                       ("weight.grad", bn.weight.grad, w64.grad),
+                       ("bias.grad", bn.bias.grad, b64.grad)):
+        b = b.detach().numpy()
+        np.testing.assert_allclose(a.detach().double().numpy(), b, rtol=0,
+                                   atol=tol * np.abs(b).max(), err_msg=name)
+    for name, b in want_stats.items():
+        np.testing.assert_allclose(getattr(bn, name).double().numpy(), b.numpy(), rtol=2e-6,
+                                   err_msg=name)
 
 
 def test_init_model_is_seeded_and_upsample_frozen():

@@ -10,7 +10,9 @@ JAX weight bridge (utils/convert.py) map by name.
 
 BatchNorm follows flax, not nn.BatchNorm2d: the running variance is updated
 with the *biased* batch variance (torch uses the unbiased one), with
-momentum 0.1 in torch's convention (= flax momentum 0.9).
+momentum 0.1 in torch's convention (= flax momentum 0.9). In one process
+the update takes the statistics the normalisation itself took (its saved
+mean and 1/sqrt(var + eps)), so each input is read once for both.
 
 `dtype` is the JAX model's mixed-precision knob: the input is cast to it and
 activations run in it (bfloat16 for inference) while parameters and BN
@@ -121,16 +123,20 @@ class BatchNorm2d(nn.Module):
         remat = _remat_call()
         if distributed.world() > 1:
             return self._global_batch_forward(x, remat)
-        # Normalize with the biased batch statistics, then update the running
-        # statistics with the biased variance (flax), not the unbiased one.
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        # Normalize with the biased batch statistics, through the op that
+        # F.batch_norm dispatches to (cuDNN or ATen's kernel, the same
+        # autograd), and keep the mean and 1/sqrt(var + eps) it saves for the
+        # backward pass. The running statistics are updated from those, with
+        # the biased variance (flax), not the unbiased one.
+        y, mean, invstd, _, _ = torch._batch_norm_impl_index(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps,
+            torch.backends.cudnn.enabled)
         if remat is not None and remat.replaying:
             return y
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(invstd.pow(-2).sub_(self.eps), alpha=m)
         return y
 
     def _global_batch_forward(self, x: torch.Tensor, remat: Optional[_RematCall]) -> torch.Tensor:
