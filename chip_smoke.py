@@ -217,28 +217,32 @@ process, then exit):
      with `--data-parallel --shard auto` and with `--shard spatial`, the
      result files paired with the unsharded run's;
  27. make_multi_train_step: K=4, ResNet-101 batch 12, 500x500, fp32,
-     deterministic cuDNN, two calls (warm-up step, capture and 3 replays;
-     then 2 replays, a capture at the learning rate the staircase steps
-     down to at step 6, 2 replays) against 8 plain train steps from
-     the same state with the same draws: losses, parameters, BN
-     statistics and momentum bit-equal or within rtol 1e-6 (printed), K1
-     once a step; then tools.train_bench --multi 4 --iters 3 and its plain
+     deterministic cuDNN with its timed engine search, three calls
+     (warm-up step, capture and 3 replays; then 2 replays, a capture at
+     the learning rate the staircase steps down to at step 6, 2 replays;
+     then batch 8: a warm-up step at the new shape, a capture and 2
+     replays) against 12 plain train steps from the same state with the
+     same draws: losses, parameters, BN statistics and momentum bit-equal
+     or within rtol 1e-6 (printed), K1 once a step, each call's seconds
+     printed; then tools.train_bench --multi 4 --iters 3 and its plain
      step in the same process;
  28. tools.h2d_probe (16 MiB payloads), tools.prewarm_cache (every
      library, cached by then) and tools.kernel_selftest (K1 against the
      plain assignment on the card: PASS).
  30. Trainer.train_step's captured route (trainer._CapturedSteps, next to
-     27): ResNet-101 batch 12, 500x500, fp32, deterministic cuDNN, a
-     Trainer's first 6 steps (a warm-up step, a capture and 5 replays)
-     against 6 eager train_step calls from the same weights and the same
-     step generators, while another thread pins and copies host memory as
-     the loader's producer does: the losses each step returned (kept until the last
-     step), parameters, BN statistics and momentum bit-equal or within
-     rtol 1e-6 (the largest gap printed), step_counts {"eager": 1,
-     "captured": 1, "replayed": 5}, K1 once a step; then, on default
-     cuDNN, the step with a loss read after each (as the benchmark's train
-     cell reads it), eager and replayed in turns (eager, replay, replay,
-     eager, 5 steps each, ms a step); then one `main.run --profile-dir`
+     27): ResNet-101 500x500, fp32, deterministic cuDNN with its timed
+     engine search, a Trainer's first 8 steps (at batch 12 a warm-up
+     step, a capture and 5 replays; at batch 8 a warm-up step, a capture
+     and its replay) against 8 eager train_step calls from the same
+     weights and the same step generators, while another thread pins and
+     copies host memory as the loader's producer does: the losses each
+     step returned (kept until the last step), parameters, BN statistics
+     and momentum bit-equal or within rtol 1e-6 (the largest gap
+     printed), step_counts {"eager": 2, "captured": 2, "replayed": 6,
+     "tuned": 2} and the tuned steps' seconds printed, K1 once a step;
+     then, on default cuDNN, the step with a loss read after each (as the
+     benchmark's train cell reads it), eager and replayed in turns (eager,
+     replay, replay, eager, 5 steps each, ms a step); then one `main.run --profile-dir`
      epoch (4 steps) on the phase's own 48-image tree, the capture under
      the profiler: its trace.json holds K1's kernel once a step, its
      spans.json the steps' paths (eager, capture, replay, replay).
@@ -300,6 +304,7 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import ctypes
@@ -2947,8 +2952,9 @@ def phase_multi(templates_np, dev: torch.device, name: str) -> tuple[dict, int]:
     """Phase 27: make_multi_train_step (one captured CUDA graph of the step)
     at K=4, batch 12, 500x500, fp32, deterministic cuDNN, twice (a warm-up
     step, the capture and 3 replays; then 2 replays, a capture at the
-    schedule's next rate and 2 replays of it), against 8 plain steps
-    from the same state and the same draws: losses, parameters, BN
+    schedule's next rate and 2 replays of it), then at batch 8 (a warm-up
+    step at the new shape, the capture, 2 replays), against 12 plain
+    steps from the same state and the same draws: losses, parameters, BN
     statistics and momentum bit-equal (or within rtol 1e-6, printed); K1
     once a step. Then tools.train_bench --multi 4 and its plain step.
     Returns the numbers and K1's launches on the multi path."""
@@ -2960,7 +2966,8 @@ def phase_multi(templates_np, dev: torch.device, name: str) -> tuple[dict, int]:
     # the new rate at step 6
     tc = TrainConfig(batch_size=12, lr_step_epochs=1)
     rng = np.random.default_rng(27)
-    host = [make_synthetic_train_batch(rng, tc.batch_size, cfg) for _ in range(2 * k)]
+    rows = [tc.batch_size] * 2 * k + [8] * k  # the third call at a second batch shape
+    host = [make_synthetic_train_batch(rng, r, cfg) for r in rows]
     batches = [{n: torch.from_numpy(v).to(dev) for n, v in b.items()} for b in host]
     trainers = []
     for _ in range(2):
@@ -2977,14 +2984,16 @@ def phase_multi(templates_np, dev: torch.device, name: str) -> tuple[dict, int]:
                                       multi_t.schedule)
         assignment_kernel.launch_count = 0
         t0 = time.perf_counter()
-        got = []
-        for c in range(2):
+        got, out["call_s"] = [], []
+        for c in range(3):  # the first and the third warm up a batch shape: cuDNN's search
+            t1 = time.perf_counter()
             stacked = {n: torch.stack([b[n] for b in batches[c * k:(c + 1) * k]]) for n in batches[0]}
             got.append(torch.stack(list(multi(stacked, multi_t.seed, c * k))))
-        torch.cuda.synchronize(dev)
+            torch.cuda.synchronize(dev)
+            out["call_s"].append(time.perf_counter() - t1)
         out["multi_s"] = time.perf_counter() - t0
         launches = assignment_kernel.launch_count
-        check(launches == 2 * k, f"multi: K1 {launches} launches in {2 * k} steps")
+        check(launches == 3 * k, f"multi: K1 {launches} launches in {3 * k} steps")
         want = []
         for step, b in enumerate(batches):
             lb = train_step(plain_t.model, plain_t.opt, b, step_generator(plain_t.seed, step, dev),
@@ -3004,11 +3013,12 @@ def phase_multi(templates_np, dev: torch.device, name: str) -> tuple[dict, int]:
         del multi
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
-    print(f"multi step K={k} (CUDA graph) against {2 * k} plain steps, ResNet-101 batch 12 fp32, "
-          f"deterministic cuDNN: losses bit-equal {out['losses_bit_equal']} (max rel "
+    print(f"multi step K={k} (CUDA graph) against {3 * k} plain steps, ResNet-101 batch 12 then 8, "
+          f"fp32, deterministic cuDNN, timed engine search: losses bit-equal {out['losses_bit_equal']} "
+          f"(max rel "
           f"{out['losses_max_rel_diff']:.3g}), parameters/BN/momentum bit-equal "
           f"{out['state_bit_equal']} (max rel {out['state_max_rel_diff']:.3g}), K1 {launches} "
-          f"launches ({name})", flush=True)
+          f"launches, the calls {[round(x, 2) for x in out['call_s']]} s ({name})", flush=True)
     del trainers, multi_t, plain_t, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -3035,10 +3045,12 @@ def phase_trainer_capture(templates_np, dev: torch.device, name: str) -> tuple[d
     from tinyfaces_tpu_torch.bench_train import make_synthetic_train_batch
     from tinyfaces_tpu_torch.trainer import step_generator, train_step
 
-    cfg, tc, n = DetectorConfig(), TrainConfig(batch_size=12), 6
+    cfg, tc = DetectorConfig(), TrainConfig(batch_size=12)
+    rows = [tc.batch_size] * 6 + [8] * 2  # a second batch shape after the first capture
+    n = len(rows)
     rng = np.random.default_rng(30)
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in make_synthetic_train_batch(
-        rng, tc.batch_size, cfg).items()} for _ in range(n)]
+        rng, r, cfg).items()} for r in rows]
     trainers = []
     for _ in range(2):
         model = init_model(TinyFacesDetector(), torch.Generator().manual_seed(0))
@@ -3077,12 +3089,12 @@ def phase_trainer_capture(templates_np, dev: torch.device, name: str) -> tuple[d
         plain_t.step = n
         pairs = list(zip(state_of(graphed_t.model, graphed_t.opt), state_of(plain_t.model, plain_t.opt)))
         rel = lambda a, b: float((a.double() - b.double()).abs().max() / max(float(b.double().abs().max()), 1e-30))  # noqa: E731
-        out.update(step_counts=dict(graphed_t.step_counts), k1_launches=launches,
+        out.update(step_counts=dict(graphed_t.step_counts), tuned_s=graphed_t.tuned_s, k1_launches=launches,
                    losses_bit_equal=bool(torch.equal(got, want)),
                    state_bit_equal=all(torch.equal(a, b) for a, b in pairs),
                    losses_max_rel_diff=rel(got, want),
                    state_max_rel_diff=max(rel(a, b) for a, b in pairs if a.is_floating_point()))
-        check(graphed_t.step_counts == {"eager": 1, "captured": 1, "replayed": n - 1},
+        check(graphed_t.step_counts == {"eager": 2, "captured": 2, "replayed": n - 2, "tuned": 2},
               f"the captured route's steps: {graphed_t.step_counts}")
         check(launches == n, f"the captured route: K1 {launches} launches in {n} steps")
         check(torch.isfinite(got).all() and out["losses_max_rel_diff"] <= 1e-6
@@ -3092,12 +3104,13 @@ def phase_trainer_capture(templates_np, dev: torch.device, name: str) -> tuple[d
     finally:
         stop.set()
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
-    print(f"Trainer.train_step, captured route, {n} steps (warm-up, capture, {n - 1} replays; a thread "
-          f"pinning and copying host memory throughout) against "
-          f"{n} eager steps, ResNet-101 batch 12 fp32, deterministic cuDNN: losses bit-equal "
+    print(f"Trainer.train_step, captured route, {n} steps (batch 12: warm-up, capture, 5 replays; batch 8: "
+          f"warm-up, capture, replay; a thread pinning and copying host memory throughout) against "
+          f"{n} eager steps, ResNet-101 fp32, deterministic cuDNN, timed engine search: losses bit-equal "
           f"{out['losses_bit_equal']} (max rel {out['losses_max_rel_diff']:.3g}), parameters/BN/momentum "
           f"bit-equal {out['state_bit_equal']} (max rel {out['state_max_rel_diff']:.3g}), step_counts "
-          f"{out['step_counts']}, K1 {launches} launches ({name})", flush=True)
+          f"{out['step_counts']}, the tuned steps {out['tuned_s']:.2f} s, K1 {launches} launches ({name})",
+          flush=True)
 
     # The step with its loss read after it, eager (plain_t) and replayed
     # (graphed_t, recaptured once for default cuDNN) in turns.
@@ -3121,8 +3134,8 @@ def phase_trainer_capture(templates_np, dev: torch.device, name: str) -> tuple[d
     turns = [("eager", timed(plain_t, True)), ("replay", timed(graphed_t, False)),
              ("replay", timed(graphed_t, False)), ("eager", timed(plain_t, True))]
     out["step_ms"] = {k: [ms for kind, ms in turns if kind == k] for k in ("eager", "replay")}
-    # the comparison's n - 1 replays, the capture's after setup() and the 10 timed
-    check(graphed_t.step_counts["replayed"] == n + 10, f"timed steps: {graphed_t.step_counts}")
+    # the comparison's n - 2 replays, the capture's after setup() and the 10 timed
+    check(graphed_t.step_counts["replayed"] == n - 2 + 1 + 10, f"timed steps: {graphed_t.step_counts}")
     print(f"the step with a loss read after each, default cuDNN, in turns: eager {out['step_ms']['eager']} "
           f"ms, replayed {out['step_ms']['replay']} ms ({name})", flush=True)
     del trainers, graphed_t, plain_t, batches, kept
@@ -3150,9 +3163,17 @@ def phase_trainer_capture(templates_np, dev: torch.device, name: str) -> tuple[d
     paths = [s["attrs"]["path"] for s in spans if s["name"] == "train.step"]
     out["profiled_epoch"] = {"steps": steps, "step_counts": counts, "k1_in_trace": k1,
                              "paths": paths, "trace_mib": (root / "profile" / "trace.json").stat().st_size / 2**20}
-    check(counts == {"eager": 1, "captured": 1, "replayed": steps - 1} and cli_launches == steps,
+    check(counts == {"eager": 1, "captured": 1, "replayed": steps - 1, "tuned": 1} and cli_launches == steps,
           f"profiled epoch: {counts}, K1 {cli_launches} launches in {steps} steps")
     check(paths == ["eager", "capture"] + ["replay"] * (steps - 2), f"profiled epoch's paths {paths}")
+    if k1 != steps:  # which steps' K1 the trace lacks: its kernels' and the steps' times
+        t_k1 = sorted(e["ts"] for e in trace["traceEvents"] if e.get("cat") == "kernel"
+                      and tracefile.kernel_is(e.get("name", ""), ("reduce_kernel",)))
+        t_steps = sorted((e["ts"], e.get("dur")) for e in trace["traceEvents"]
+                         if e.get("name") == profiling.PREFIX + "train.step")
+        kinds = collections.Counter(e.get("cat") for e in trace["traceEvents"])
+        print(f"profiled epoch: K1 at {t_k1}, train.step spans at {t_steps}, events {dict(kinds)}",
+              flush=True)
     check(k1 == steps, f"profiled epoch: K1's kernel {k1} times in the trace of {steps} steps")
     print(f"main.run --profile-dir, one epoch of {steps} steps: paths {paths}, K1's kernel {k1} times "
           f"in the trace ({out['profiled_epoch']['trace_mib']:.1f} MiB) ({name})", flush=True)

@@ -135,9 +135,11 @@ def test_resume_is_bit_exact_and_records_match_jax(tree, tmp_path, monkeypatch):
     assert [r["epoch"] for r in ends] == [0, 1] and ends[-1]["gt_dropped_boxes"] > 0
     assert all(np.isfinite(r["loss_cls_step"]) for r in steps)
     assert [r["replayed_steps"] for r in ends] == [0, 0]  # the CPU's steps are eager
+    assert [r["tuned_steps"] for r in ends] == [1, 0]  # the first step at the batch's shapes
     jax_records = _jax_records(tree, tmp_path / "jax.jsonl")
-    # the JAX package's keys, and the port's epoch_end adds its replays
-    assert {tuple(k for k in r if k != "replayed_steps") for r in records} == {tuple(r) for r in jax_records}
+    # the JAX package's keys, and the port's epoch_end adds its replays and tuned steps
+    added = {"replayed_steps", "tuned_steps", "tuned_s"}
+    assert {tuple(k for k in r if k not in added) for r in records} == {tuple(r) for r in jax_records}
 
 
 def test_sigterm_checkpoints_and_stops(tree, tmp_path, monkeypatch):

@@ -279,7 +279,7 @@ def test_train_step_phase_spans(recording, nan_guard):
         lb = trainer.train_step(_batch(data[2 * i:2 * i + 2]))
         assert np.isfinite(float(lb.total))
         steps = _named("train.step")
-        assert len(steps) == 1 and steps[0].attrs == {"step": i, "path": "eager"}
+        assert len(steps) == 1 and steps[0].attrs == {"step": i, "path": "eager", "tuned": int(i == 0)}
         phases = sorted((s for s in profiling.spans() if s.parent == steps[0].id),
                         key=lambda s: s.start)
         assert [s.name for s in phases] == PHASES

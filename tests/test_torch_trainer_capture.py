@@ -3,13 +3,18 @@
 On a CUDA card, in one process and with nan_guard off, the Trainer's steps
 are replays of one captured CUDA graph (trainer._CapturedSteps): an eager
 warm-up step, then a capture and its replay, then replays, and a capture
-again for a new learning rate. Everywhere else the step is the eager
-train_step. Here the graph is a stub that runs the plain step on the draws
-it is handed, so the order of the route, its counter, its spans and its
-invalidation are checked on the CPU, and the stubbed route is held bit-equal
-to eager steps. chip_smoke.py holds the real graph to eager steps on a card.
+again for a new learning rate, and a new batch shape warms up eagerly
+before its capture. Everywhere else the step is the eager train_step. Here
+the graph is a stub that runs the plain step on the draws it is handed, so
+the order of the route, its counter, its spans and its invalidation are
+checked on the CPU, and the stubbed route is held bit-equal to eager steps.
+chip_smoke.py holds the real graph to eager steps on a card. The step's
+eager work and its capture run under cuDNN's timed engine search
+(trainer.timed_engines), which sets `benchmark` alone and leaves the
+caller's other flags as they are.
 """
 
+import contextlib
 import weakref
 
 import pytest
@@ -25,7 +30,7 @@ from tinyfaces_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
-EAGER = {"eager": 2, "captured": 0, "replayed": 0}
+EAGER = {"eager": 2, "captured": 0, "replayed": 0, "tuned": 1}
 
 
 class StubCaptured:
@@ -153,12 +158,12 @@ def test_warm_up_capture_replays_and_recapture(stub, monkeypatch):
     assert _paths() == ["eager", "capture", "replay", "capture", "replay"]
     assert [e[0] for e in stub.events] == ["capture", "replay", "replay", "capture", "replay", "replay"]
     assert [e[1] for e in stub.events if e[0] == "capture"] == [graphed.schedule(1), graphed.schedule(3)]
-    assert graphed.step_counts == {"eager": 1, "captured": 2, "replayed": 4}
+    assert graphed.step_counts == {"eager": 1, "captured": 2, "replayed": 4, "tuned": 1}
 
     monkeypatch.setattr(trainer_mod, "replays_step", lambda device, nan_guard: False)
     eager = _trainer(tc, steps_per_epoch=3)
     want = [torch.stack(list(eager.train_step(b))) for b in batches]
-    assert eager.step_counts == {"eager": 5, "captured": 0, "replayed": 0}
+    assert eager.step_counts == {"eager": 5, "captured": 0, "replayed": 0, "tuned": 1}
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     for a, b in zip(_state(graphed), _state(eager)):
@@ -183,7 +188,7 @@ def test_setup_and_restore_drop_the_graph(stub, tmp_path, how):
     t.train_step(_batch(items[:2]))
     t.train_step(_batch(items[2:]))
     assert _paths() == ["eager", "capture", "eager", "capture"]
-    assert t.step_counts == {"eager": 2, "captured": 2, "replayed": 2}
+    assert t.step_counts == {"eager": 2, "captured": 2, "replayed": 2, "tuned": 2}
 
 
 def test_no_reference_cycle_keeps_the_graph(stub):
@@ -200,7 +205,8 @@ def test_no_reference_cycle_keeps_the_graph(stub):
 
 def test_epoch_end_logs_the_replayed_steps(stub, tmp_path):
     """train_epoch's epoch_end record counts the epoch's replays: three
-    steps, the first the warm-up, then 2 and 3 in the next epoch."""
+    steps, the first the warm-up, then 2 and 3 in the next epoch; and the
+    tuned steps with their seconds: the first epoch's warm-up alone."""
     import json
 
     tc = TrainConfig(batch_size=2, workers=2)
@@ -212,6 +218,116 @@ def test_epoch_end_logs_the_replayed_steps(stub, tmp_path):
     ends = [r for r in map(json.loads, (tmp_path / "m.jsonl").read_text().splitlines())
             if r.get("event") == "epoch_end"]
     assert [r["replayed_steps"] for r in ends] == [2, 3]
-    assert t.step_counts == {"eager": 1, "captured": 1, "replayed": 5}
+    assert [r["tuned_steps"] for r in ends] == [1, 0]
+    assert ends[0]["tuned_s"] == pytest.approx(t.tuned_s) and t.tuned_s > 0 and ends[1]["tuned_s"] == 0
+    assert t.step_counts == {"eager": 1, "captured": 1, "replayed": 5, "tuned": 1}
     replays = [s for s in profiling.spans() if s.name == "train.step" and s.attrs["path"] == "replay"]
     assert len(replays) == 4
+
+
+def test_warm_up_per_batch_shape(stub, monkeypatch):
+    """A batch shape not seen since the last drop runs one eager step (the
+    warm-up, cuDNN's timed search) before its capture, and the old graph is
+    gone before it; shapes warmed up before only capture again; setup()
+    forgets them. Every step bit-equal to an eager Trainer's."""
+    items = _dataset(22, seed=7)
+    rows = [2, 2, 2, 3, 3, 3, 2, 2, 3]
+    batches, at = [], 0
+    for n in rows:
+        batches.append(_batch(items[at:at + n]))
+        at += n
+    graphed = _trainer()
+    got, graphs = [], []
+    for b in batches[:7]:
+        got.append(torch.stack(list(graphed.train_step(b))))
+        graphs.append(graphed._captured.graph is not None)
+    assert _paths() == ["eager", "capture", "replay", "eager", "capture", "replay", "capture"]
+    assert graphs == [False, True, True, False, True, True, True]  # none across a warm-up
+    assert graphed.step_counts == {"eager": 2, "captured": 3, "replayed": 5, "tuned": 2}
+    assert [s.attrs["tuned"] for s in profiling.spans() if s.name == "train.step"] == [1, 0, 0, 1, 0, 0, 0]
+    assert (graphed._captured.path(batches[7], graphed.schedule(graphed.step)), graphed._captured.path(
+        batches[8], graphed.schedule(graphed.step))) == ("replay", "capture")
+    state = [x.clone() for x in _state(graphed)]
+    graphed.setup(steps_per_epoch=10)
+    assert graphed._captured.path(batches[7], graphed.schedule(0)) == "eager"
+
+    monkeypatch.setattr(trainer_mod, "replays_step", lambda device, nan_guard: False)
+    eager = _trainer()
+    want = [torch.stack(list(eager.train_step(b))) for b in batches[:7]]
+    assert eager.step_counts == {"eager": 7, "captured": 0, "replayed": 0, "tuned": 2}
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for a, b in zip(state, _state(eager)):
+        assert torch.equal(a, b)
+
+
+def _cudnn_flags() -> dict:
+    c = torch.backends.cudnn
+    return {"enabled": c.enabled, "benchmark": c.benchmark, "benchmark_limit": c.benchmark_limit,
+            "deterministic": c.deterministic, "allow_tf32": c.allow_tf32,
+            "fp32_precision": c.fp32_precision, "conv.fp32_precision": c.conv.fp32_precision,
+            "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+class _FakeGraph:
+    """torch.cuda.CUDAGraph on the CPU: the capture runs the step once."""
+
+
+@contextlib.contextmanager
+def _fake_capture(graph, capture_error_mode):
+    yield
+
+
+@pytest.mark.parametrize("caller", ["fp32_deterministic", "tf32"])
+@pytest.mark.parametrize("route", ["eager", "warm_up", "capture"])
+def test_timed_search_inside_the_step_caller_flags_kept(monkeypatch, route, caller):
+    """Inside the eager step, the warm-up and the capture (a fake graph on
+    the CPU) cuDNN's timed search is on, in the forward and in the backward
+    pass, with the caller's TF32, determinism and `enabled` as they were;
+    after the step every global flag is the caller's again."""
+    fp32 = caller == "fp32_deterministic"
+    seen = []
+    t = _trainer()
+    t.model.register_forward_pre_hook(lambda m, args: seen.append(("forward", _cudnn_flags())))
+    t.model.score_res3.register_full_backward_pre_hook(
+        lambda m, grad: seen.append(("backward", _cudnn_flags())))
+    items = _dataset(2, seed=8)
+    batch = _batch(items)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=fp32, allow_tf32=not fp32):
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", not fp32)
+        before = _cudnn_flags()
+        if route == "capture":
+            monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+            monkeypatch.setattr(torch.cuda, "graph", _fake_capture)
+            gen = t.step_generator()
+            draws = trainer_mod.step_draws(gen, 2, trainer_mod._n_anchors(CFG))
+            captured = trainer_mod._Captured(t.model, t.opt, batch, draws, cfg=CFG,
+                                             templates=t.templates_t, lr=1e-3)
+            assert torch.isfinite(captured.losses.total)
+        else:
+            if route == "warm_up":
+                monkeypatch.setattr(trainer_mod, "replays_step", lambda device, nan_guard: True)
+                monkeypatch.setattr(trainer_mod, "_Captured", Refused)
+            assert torch.isfinite(t.train_step(batch).total)
+            assert t.step_counts["tuned"] == 1
+        after = _cudnn_flags()
+    assert after == before and before["benchmark"] is False
+    assert before["allow_tf32"] is (not fp32) and before["deterministic"] is fp32
+    assert [where for where, _ in seen] == ["forward", "backward"]
+    for _, inside in seen:
+        assert inside == {**before, "benchmark": True}
+
+
+def test_flags_restored_when_the_step_raises(monkeypatch):
+    """A step that raises leaves the caller's cuDNN flags as they were."""
+    t = _trainer()
+
+    def boom(*args, **kwargs):
+        assert torch.backends.cudnn.benchmark
+        raise RuntimeError("boom")
+
+    monkeypatch.setattr(trainer_mod, "detection_loss", boom)
+    before = _cudnn_flags()
+    with pytest.raises(RuntimeError, match="boom"):
+        t.train_step(_batch(_dataset(2, seed=9)))
+    assert _cudnn_flags() == before

@@ -39,17 +39,27 @@ On one CUDA card (one process, `nan_guard` off: `replays_step`) each of
 `Trainer.train_step`'s steps is a replay of one captured CUDA graph of the
 step (`_CapturedSteps`, which `make_multi_train_step` shares): the first
 step runs eagerly on a side stream, the next captures the step and replays
-it, and a new batch shape or learning rate captures again. Everywhere else
-(the CPU, a process group, `nan_guard`) the step is the eager `train_step`.
+it, a new learning rate captures again, and a new batch shape runs one
+eager step on the side stream before its capture. Everywhere else (the CPU,
+a process group, `nan_guard`) the step is the eager `train_step`.
 `Trainer.step_counts` counts the eager steps, the captures and the replays.
 
+The train step's convolutions run on the cuDNN engines that cuDNN's timed
+search picks (`timed_engines`, PyTorch's benchmark mode), not on its
+heuristics' guess: the search times each convolution key's candidates at
+its first call, which is an eager step (a batch shape's warm-up on the
+captured route), and a capture or a later step reuses the plan it cached.
+`step_counts["tuned"]` counts those steps, one per batch shape since the
+last `setup`/`restore`.
+
 A step's spans (utils/profiling.py), when they record: `train.step`
-(`Trainer.train_step`, attributes `step` and `path`: `eager`, `capture` or
-`replay`) around its phases `train.targets` (build_targets, K1's launch
-inside), `train.forward`, `train.loss`, `train.backward` and `train.update`
-(the gradients' all-reduce, the rates, `opt.step()`); `train.replay` a
-captured step's replay, inside `train.step`. A captured step's five phase
-spans are recorded once, by its capture: a replay records `train.step` and
+(`Trainer.train_step`, attributes `step`, `path`: `eager`, `capture` or
+`replay`, and `tuned`: 1 where the step ran the timed search) around its
+phases `train.targets` (build_targets, K1's launch inside),
+`train.forward`, `train.loss`, `train.backward` and `train.update` (the
+gradients' all-reduce, the rates, `opt.step()`); `train.replay` a captured
+step's replay, inside `train.step`. A captured step's five phase spans are
+recorded once, by its capture: a replay records `train.step` and
 `train.replay` alone.
 """
 
@@ -59,6 +69,7 @@ import contextlib
 import dataclasses
 import os
 import threading
+import time
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -86,6 +97,38 @@ GROUP_LR_FACTORS = {
     "score_res4": 1.0,
     "score4_upsample": 0.0,  # frozen bilinear upsampler
 }
+
+
+# How many of cuDNN's candidate engines the timed search times for each
+# convolution key, in its heuristics' order (0: every engine). On an H100,
+# ResNet-101 batch 12 at 500x500 in fp32: 5 keeps the device step of 10 and
+# of 0 at a quarter of their search's seconds (PERF.md, the limit table).
+SEARCH_LIMIT = 5
+
+
+@contextlib.contextmanager
+def timed_engines():
+    """cuDNN's timed engine search (`torch.backends.cudnn.benchmark`, at
+    `SEARCH_LIMIT`) around a train step's eager work or capture: the first
+    call of each convolution key times the candidate engines and keeps the
+    fastest, in a cache of the process that every later call of the key
+    reuses. Only `benchmark` and `benchmark_limit` are set, and both are
+    restored after: TF32, `deterministic` (a deterministic caller's search
+    times deterministic engines alone) and `enabled` stay the caller's, and
+    the process's flags are the same after the step as before. Off a card
+    nothing reads the flags."""
+    cudnn = torch.backends.cudnn
+    has_limit = cudnn.is_available()  # a CPU build has no benchmark_limit
+    old = (cudnn.benchmark, cudnn.benchmark_limit if has_limit else None)
+    cudnn.benchmark = True
+    if has_limit:
+        cudnn.benchmark_limit = SEARCH_LIMIT
+    try:
+        yield
+    finally:
+        cudnn.benchmark = old[0]
+        if has_limit:
+            cudnn.benchmark_limit = old[1]
 
 
 def make_lr_schedule(tc: TrainConfig, steps_per_epoch: int) -> Callable[[int], float]:
@@ -148,10 +191,13 @@ def train_step(
     Under a process group of N ranks `batch` is this rank's rows of the
     global batch, the draws are made (or taken) for the global batch and
     this rank's rows kept, the gradients are all-reduced with SUM before
-    the update, and the returned losses are the global batch's."""
+    the update, and the returned losses are the global batch's.
+
+    The step runs under `timed_engines`."""
     opt.zero_grad(set_to_none=True)
-    return _step_body(model, opt, batch, generator, cfg=cfg, templates=templates, lr=lr,
-                      nan_guard=nan_guard, draws=draws)
+    with timed_engines():
+        return _step_body(model, opt, batch, generator, cfg=cfg, templates=templates, lr=lr,
+                          nan_guard=nan_guard, draws=draws)
 
 
 def _step_body(model, opt, batch, generator, *, cfg, templates, lr, nan_guard, draws):
@@ -225,7 +271,10 @@ class _Captured:
     replay, the losses read out after it. The capture checks the capturing
     thread's CUDA calls alone: the loader's threads go on pinning host
     memory and querying its copies' events meanwhile, which would
-    invalidate a capture in the global mode."""
+    invalidate a capture in the global mode. The capture runs under
+    `timed_engines`, so it takes the plans the warm-up's search cached for
+    its shapes; it is never a convolution key's first call (a search inside
+    a capture would fail)."""
 
     def __init__(self, model, opt, batch: dict, draws: dict, *, cfg, templates, lr: float):
         self.batch = {k: torch.empty_like(v) for k, v in batch.items()}
@@ -237,14 +286,14 @@ class _Captured:
         opt.zero_grad(set_to_none=True)
         captured = assignment_kernel.captured_count
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+        with timed_engines(), torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.losses = _step_body(model, opt, self.batch, None, cfg=cfg, templates=templates,
                                      lr=lr, nan_guard=False, draws=self.draws)
         self.k1_launches = assignment_kernel.captured_count - captured
 
     @staticmethod
     def key_of(batch: dict, lr: float) -> tuple:
-        return lr, tuple((k, v.shape, v.dtype) for k, v in sorted(batch.items()))
+        return lr, _shapes_of(batch)
 
     def replay(self, batch: dict, draws: dict) -> torch.Tensor:
         """One step. Its phase spans were recorded once, by the capture."""
@@ -257,6 +306,12 @@ class _Captured:
             self.graph.replay()
             assignment_kernel.count_replay(self.k1_launches)
             return torch.stack(list(self.losses))
+
+
+def _shapes_of(batch: dict) -> tuple:
+    """The batch's names, shapes and dtypes: what its convolutions' cuDNN
+    keys depend on."""
+    return tuple((k, v.shape, v.dtype) for k, v in sorted(batch.items()))
 
 
 @contextlib.contextmanager
@@ -277,26 +332,28 @@ def _side_stream(dev: torch.device):
 
 class _CapturedSteps:
     """Train steps on a card as replays of one captured CUDA graph (what
-    `make_multi_train_step` and `Trainer.train_step` share). The first step
-    runs eagerly on a side stream, the warm-up; the next captures the step
-    into a `_Captured` and replays it; each later step replays it, or
-    captures again first where its `_Captured.key_of(batch, lr)` is new (a
-    batch shape, or the staircase's next rate). The old graph is dropped
-    before a new capture, so two memory pools never coexist. `drop()`
-    forgets the graph and the warm-up: the next step is eager again (a new
-    optimizer has no momentum yet, and a capture would bake in its first
-    step's)."""
+    `make_multi_train_step` and `Trainer.train_step` share). A step at
+    batch shapes not seen since `drop()` runs eagerly on a side stream, the
+    warm-up, in which cuDNN's timed search picks each convolution's engine
+    (`timed_engines`); the next captures the step into a `_Captured` and
+    replays it; each later step replays it, or captures again first where
+    its `_Captured.key_of(batch, lr)` is new (shapes warmed up before, or
+    the staircase's next rate). The old graph is dropped before a new
+    capture or warm-up, so two memory pools never coexist. `drop()`
+    forgets the graph and the warmed shapes: the next step is eager again
+    (a new optimizer has no momentum yet, and a capture would bake in its
+    first step's)."""
 
     def __init__(self):
         self.graph: Optional[_Captured] = None
-        self.warm = False
+        self.warm: set = set()  # _shapes_of the batches warmed up since drop()
 
     def drop(self) -> None:
-        self.graph, self.warm = None, False
+        self.graph, self.warm = None, set()
 
     def path(self, batch: dict, lr: float) -> str:
         """What `run` does next: "eager", "capture" (then replay) or "replay"."""
-        if not self.warm:
+        if _shapes_of(batch) not in self.warm:
             return "eager"
         if self.graph is None or self.graph.key != _Captured.key_of(batch, lr):
             return "capture"
@@ -307,10 +364,11 @@ class _CapturedSteps:
         losses in a tensor of their own, which no later replay overwrites."""
         path = self.path(batch, lr)
         if path == "eager":
+            self.graph = None  # its shapes differ: free its pool, the next step captures
             with _side_stream(batch["gt_boxes"].device):
                 losses = torch.stack(list(train_step(model, opt, batch, None, cfg=cfg,
                                                      templates=templates, lr=lr, draws=draws)))
-            self.warm = True
+            self.warm.add(_shapes_of(batch))
             return losses
         if path == "capture":
             self.graph = None  # free its pool before the next capture
@@ -343,10 +401,11 @@ def make_multi_train_step(model: TinyFacesDetector, opt: torch.optim.SGD, cfg: D
 
     On the CPU it is a plain loop of train_step. On CUDA the steps run
     through `_CapturedSteps`, as Trainer.train_step's do on a card: the
-    first step of the first call eagerly on a side stream, the next
-    captured into one CUDA graph, and each step a replay: the batch and the
-    step's draws, made outside the graph from the step's generator, are
-    copied into the graph's static buffers first. The
+    first step at each batch shape eagerly on a side stream (cuDNN's timed
+    search runs there), the next captured into one CUDA graph, and each
+    step a replay: the batch and the step's draws, made outside the graph
+    from the step's generator, are copied into the graph's static buffers
+    first. The
     learning rate stays a Python float in the optimizer, baked into the
     graph: torch's SGD applies it as `add_(grad, alpha=-lr)`, and a tensor
     rate would take another rounding path, so one graph is captured per
@@ -506,7 +565,11 @@ class Trainer:
         self.reg_average = AvgMeter()
         self.skipped_steps = 0  # non-finite-loss steps seen
         self._captured = _CapturedSteps()
-        self.step_counts = {"eager": 0, "captured": 0, "replayed": 0}
+        # "tuned": the eager steps at shapes new since setup/restore, in
+        # which cuDNN's timed search ran; tuned_s their seconds, the device's
+        # work included
+        self.step_counts = {"eager": 0, "captured": 0, "replayed": 0, "tuned": 0}
+        self.tuned_s = 0.0
         # one console and one JSONL per run: rank 0's
         self.metrics = MetricsLogger(self.metrics_path if self.rank == 0 else None)
 
@@ -535,14 +598,18 @@ class Trainer:
         return step_generator(self.seed, self.step, self.device)
 
     def train_step(self, batch: dict) -> LossBreakdown:
-        """One step, in the span `train.step` (attribute `path`): on a card
-        where `replays_step` holds, a step of `_CapturedSteps` with the
-        draws made outside the graph from the step's generator; else the
-        eager `train_step`, its phases' spans inside."""
+        """One step, in the span `train.step` (attributes `path`, `tuned`):
+        on a card where `replays_step` holds, a step of `_CapturedSteps`
+        with the draws made outside the graph from the step's generator;
+        else the eager `train_step`, its phases' spans inside. The first
+        step at new batch shapes is eager on either route, and runs cuDNN's
+        timed search (`tuned`); it is timed to its end on the device."""
         lr = self.schedule(self.step)
         graphed = replays_step(self.device, self.nan_guard)
+        tuned = _shapes_of(batch) not in self._captured.warm
         path = self._captured.path(batch, lr) if graphed else "eager"
-        with span("train.step", step=self.step, path=path):
+        t0 = time.perf_counter()
+        with span("train.step", step=self.step, path=path, tuned=int(tuned)):
             if graphed:
                 draws = step_draws(self.step_generator(), batch["gt_boxes"].shape[0],
                                    _n_anchors(self.cfg))
@@ -552,8 +619,14 @@ class Trainer:
             else:
                 lb = train_step(self.model, self.opt, batch, self.step_generator(), cfg=self.cfg,
                                 templates=self.templates_t, lr=lr, nan_guard=self.nan_guard)
+                self._captured.warm.add(_shapes_of(batch))
+            if tuned and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        if tuned:
+            self.tuned_s += time.perf_counter() - t0
         self.step_counts["eager" if path == "eager" else "replayed"] += 1
         self.step_counts["captured"] += path == "capture"
+        self.step_counts["tuned"] += tuned
         self.step += 1
         return lb
 
@@ -572,7 +645,7 @@ class Trainer:
                      world=self.world)
         timer = StepTimer(warmup=1)
         n_batches = len(loader)
-        replayed = self.step_counts["replayed"]
+        replayed, tuned, tuned_s = self.step_counts["replayed"], self.step_counts["tuned"], self.tuned_s
         # Loss scalars are fetched lazily: the host blocks on the device only
         # at logging points.
         pending: list = []
@@ -641,5 +714,7 @@ class Trainer:
                 images_per_sec=timer.items_per_sec,
                 gt_dropped_boxes=ov["dropped_boxes"],
                 replayed_steps=self.step_counts["replayed"] - replayed,
+                tuned_steps=self.step_counts["tuned"] - tuned,
+                tuned_s=self.tuned_s - tuned_s,
             )
         return timer
