@@ -229,7 +229,7 @@ process, then exit):
  28. tools.h2d_probe (16 MiB payloads), tools.prewarm_cache (every
      library, cached by then) and tools.kernel_selftest (K1 against the
      plain assignment on the card: PASS).
- 30. Trainer.train_step's captured route (trainer._CapturedSteps, next to
+ 30. Trainer.train_step's captured route (trainer.TrainSteps, next to
      27): ResNet-101 500x500, fp32, deterministic cuDNN with its timed
      engine search, a Trainer's first 8 steps (at batch 12 a warm-up
      step, a capture and 5 replays; at batch 8 a warm-up step, a capture
@@ -355,6 +355,7 @@ from tinyfaces_tpu_torch.trainer import Trainer, load_checkpoint, save_checkpoin
 from tinyfaces_tpu_torch import bench as bench_mod
 from tinyfaces_tpu_torch.utils.instruments import build_detector as instrument_detector
 from tinyfaces_tpu_torch.utils import cuda_build, profiling
+from tinyfaces_tpu_torch.utils import graphs as cuda_graphs
 
 ROOT = Path(__file__).resolve().parent
 RF = dict(ofx=-1.0, ofy=-1.0, stx=8.0, sty=8.0)
@@ -638,11 +639,11 @@ def phase_train(templates_np, dev: torch.device, name: str):
     before = {k: v.clone() for k, v in model.state_dict().items()}
     forward_vs_cpu(model, dev)
 
-    assignment_kernel.launch_count = 0
+    k1_0 = cuda_graphs.launches("k1")
     torch.cuda.reset_peak_memory_stats(dev)
     timer = trainer.train_epoch(dataset, epoch=0)
     torch.cuda.synchronize(dev)
-    launches = assignment_kernel.launch_count
+    launches = cuda_graphs.launches("k1") - k1_0
     peak = torch.cuda.max_memory_allocated(dev)
 
     steps = len(dataset) // tc.batch_size
@@ -1127,7 +1128,7 @@ def phase_train_cli(templates_np, dev: torch.device, name: str) -> tuple[dict, i
 
     overflow.reset()
     native.counters.update(samples=0)
-    assignment_kernel.launch_count = 0
+    k1_0 = cuda_graphs.launches("k1")
     torch.cuda.reset_peak_memory_stats(dev)
     profiling.reset()
     profiling.enable()  # the loader's waits and the C++ engine's calls, as spans
@@ -1154,7 +1155,7 @@ def phase_train_cli(templates_np, dev: torch.device, name: str) -> tuple[dict, i
     finally:
         torch.backends.cudnn.deterministic = deterministic
     torch.cuda.synchronize(dev)
-    launches = assignment_kernel.launch_count
+    launches = cuda_graphs.launches("k1") - k1_0
     profiling.enable(False)
     samples = native.counters["samples"]
     native_s = sum(s.end - s.start for s in profiling.spans() if s.name == "loader.augment")
@@ -1478,7 +1479,7 @@ def phase_train_cli_jpegdct(templates_np, fixtures: dict, dev: torch.device, nam
 
     overflow.reset()
     samples = native.counters["samples"]
-    assignment_kernel.launch_count = 0
+    k1_0 = cuda_graphs.launches("k1")
     torch.cuda.reset_peak_memory_stats(dev)
     profiling.reset()
     profiling.enable()
@@ -1493,7 +1494,7 @@ def phase_train_cli_jpegdct(templates_np, fixtures: dict, dev: torch.device, nam
         trainer = train_cli.run(args)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    launches = assignment_kernel.launch_count
+    launches = cuda_graphs.launches("k1") - k1_0
     peak = torch.cuda.max_memory_allocated(dev)
     dropped = overflow.snapshot()["dropped_boxes"]
 
@@ -2108,7 +2109,7 @@ def phase_train_cli_yuv420(ann: Path, dataset, dev: torch.device, name: str) -> 
     out.mkdir(parents=True)
     tc = TrainConfig()
     native.counters.update(samples=0)
-    assignment_kernel.launch_count = 0
+    k1_0 = cuda_graphs.launches("k1")
     torch.cuda.reset_peak_memory_stats(dev)
     profiling.reset()
     profiling.enable()
@@ -2117,7 +2118,7 @@ def phase_train_cli_yuv420(ann: Path, dataset, dev: torch.device, name: str) -> 
                             "--save-every", "2", "--metrics-log", str(out / "run.jsonl"))
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    launches = assignment_kernel.launch_count
+    launches = cuda_graphs.launches("k1") - k1_0
     steps = 2 * (len(dataset) // tc.batch_size)
     check(trainer.transfer == "yuv420" and trainer.step == steps and launches == steps,
           f"yuv420 CLI: {launches} kernel launches in {trainer.step} steps, want {steps}")
@@ -2308,7 +2309,7 @@ def phase_world1_group(ann: Path, dataset, dev: torch.device, name: str) -> tupl
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     distributed.barrier_at_exit = spy
-    assignment_kernel.launch_count = 0
+    k1_0 = cuda_graphs.launches("k1")
     t0 = time.perf_counter()
     try:
         trainer = run_train_cli(ann, dataset, dev, out / "world1", "--epochs", "2", "--save-every", "1",
@@ -2318,7 +2319,7 @@ def phase_world1_group(ann: Path, dataset, dev: torch.device, name: str) -> tupl
         distributed.barrier_at_exit = real_barrier
         torch.backends.cudnn.deterministic = deterministic
     torch.cuda.synchronize(dev)
-    launches = assignment_kernel.launch_count
+    launches = cuda_graphs.launches("k1") - k1_0
     wall = time.perf_counter() - t0
     check(barriers == [("train_done", "nccl", 1)] and not dist.is_initialized(),
           f"exit barriers {barriers}, group still up: {dist.is_initialized()}")
@@ -2376,7 +2377,7 @@ def worker_dist_steps(store: str, world: str, rank: str, backend: str, out: str)
     rank_, world_ = int(rank), int(world)
     distributed.initialize(store, world_, rank_, backend=backend, device="cuda")
     trainer, loader = dist_trainer("cuda", rank_, world_)
-    assignment_kernel.launch_count = 0
+    k1_0 = cuda_graphs.launches("k1")
     torch.cuda.reset_peak_memory_stats(trainer.device)
     res = {"losses": [], "ms": [], "digests": [], "before": [], "comm_ms": [], "comm_step_ms": []}
     for batch in loader:
@@ -2399,7 +2400,7 @@ def worker_dist_steps(store: str, world: str, rank: str, backend: str, out: str)
             res["comm_ms"].append({k: v - before.get(k, 0.0) for k, v in distributed.comm_ms.items()})
     finally:
         distributed.comm_ms = None
-    res.update(launches=assignment_kernel.launch_count, steps=trainer.step,
+    res.update(launches=cuda_graphs.launches("k1") - k1_0, steps=trainer.step,
                rows=int(batch["flip"].shape[0]),
                peak_gib=torch.cuda.max_memory_allocated(trainer.device) / 2**30)
     torch.save(res, out)
@@ -2429,7 +2430,7 @@ def replay_world1(dev: torch.device, payloads: list, deterministic: bool,
         resnet.distributed = GlobalBatchNormOneRank
     try:
         trainer, loader = dist_trainer(dev, 0, 1)
-        assignment_kernel.launch_count = 0
+        k1_0 = cuda_graphs.launches("k1")
         torch.cuda.reset_peak_memory_stats(dev)
         res = {"losses": [], "ms": [], "after": []}
         for batch, payload in zip(loader, payloads, strict=True):
@@ -2438,7 +2439,7 @@ def replay_world1(dev: torch.device, payloads: list, deterministic: bool,
             res["losses"].append(losses)
             res["ms"].append(ms)
             res["after"].append(host_state(trainer))
-        res.update(launches=assignment_kernel.launch_count,
+        res.update(launches=cuda_graphs.launches("k1") - k1_0,
                    peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
     finally:
         torch.backends.cudnn.deterministic = previous
@@ -2590,11 +2591,11 @@ def worker_stop(store: str, rank: str, out_dir: str) -> None:
     args = train_cli.arguments([str(ann), str(ann), "--device", "cuda", "--epochs", "4",
                                 "--save-every", "10", "--workers", "4", "--num-processes", "2",
                                 "--process-id", rank, "--coordinator-address", store])
-    assignment_kernel.launch_count = 0
+    k1_0 = cuda_graphs.launches("k1")
     with contextlib.chdir(out):
         trainer = train_cli.run(args, dataset, backend="gloo")
     print(json.dumps({"rank": int(rank), "step": trainer.step,
-                      "launches": assignment_kernel.launch_count}), flush=True)
+                      "launches": cuda_graphs.launches("k1") - k1_0}), flush=True)
 
 
 def phase_agreed_stop(name: str) -> tuple[dict, int]:
@@ -2982,7 +2983,7 @@ def phase_multi(templates_np, dev: torch.device, name: str) -> tuple[dict, int]:
     try:
         multi = make_multi_train_step(multi_t.model, multi_t.opt, cfg, multi_t.templates_t,
                                       multi_t.schedule)
-        assignment_kernel.launch_count = 0
+        k1_0 = cuda_graphs.launches("k1")
         t0 = time.perf_counter()
         got, out["call_s"] = [], []
         for c in range(3):  # the first and the third warm up a batch shape: cuDNN's search
@@ -2992,7 +2993,7 @@ def phase_multi(templates_np, dev: torch.device, name: str) -> tuple[dict, int]:
             torch.cuda.synchronize(dev)
             out["call_s"].append(time.perf_counter() - t1)
         out["multi_s"] = time.perf_counter() - t0
-        launches = assignment_kernel.launch_count
+        launches = cuda_graphs.launches("k1") - k1_0
         check(launches == 3 * k, f"multi: K1 {launches} launches in {3 * k} steps")
         want = []
         for step, b in enumerate(batches):
@@ -3076,13 +3077,13 @@ def phase_trainer_capture(templates_np, dev: torch.device, name: str) -> tuple[d
     pinner = threading.Thread(target=producer, name="phase 30 producer", daemon=True)
     pinner.start()
     try:
-        launches0 = assignment_kernel.launch_count
+        launches0 = cuda_graphs.launches("k1")
         kept = [graphed_t.train_step(b) for b in batches]  # each read only after the last step
         stop.set()
         pinner.join(timeout=60)
         check(not pinner.is_alive(), "phase 30's producer thread did not stop")
         got = torch.stack([torch.stack(list(lb)) for lb in kept])
-        launches = assignment_kernel.launch_count - launches0
+        launches = cuda_graphs.launches("k1") - launches0
         want = torch.stack([torch.stack(list(train_step(
             plain_t.model, plain_t.opt, b, step_generator(plain_t.seed, i, dev), cfg=cfg,
             templates=plain_t.templates_t, lr=plain_t.schedule(i)))) for i, b in enumerate(batches)])
@@ -3149,10 +3150,10 @@ def phase_trainer_capture(templates_np, dev: torch.device, name: str) -> tuple[d
     root.mkdir(parents=True)
     ann, images = write_train_tree(root, np.random.default_rng(30))
     dataset = MemoryTrainSet(ann, images, templates_np, cfg)
-    launches0 = assignment_kernel.launch_count
+    launches0 = cuda_graphs.launches("k1")
     trainer = run_train_cli(ann, dataset, dev, root / "run", "--epochs", "1",
                             "--profile-dir", str(root / "profile"))
-    cli_launches = assignment_kernel.launch_count - launches0
+    cli_launches = cuda_graphs.launches("k1") - launches0
     steps = trainer.step
     counts = dict(trainer.step_counts)
     del trainer
@@ -3642,15 +3643,15 @@ def phase_compiled_pyramid(calibrated: TinyFacesDetector, templates_np, fixtures
     N1's launches on the pyramid paths of (b), (e) and (d) (replays
     counted; (a)'s comparison launches are not)."""
     t0 = time.perf_counter()
-    nms_kernel.launch_count = 0
+    n1_0 = cuda_graphs.launches("n1")
     graphs, recorded = phase_graphs(calibrated, templates_np, fixtures, dev, name)
     fp32_buckets = phase_fp32_buckets(calibrated, templates_np, dev, name)
-    launches = nms_kernel.launch_count
+    launches = cuda_graphs.launches("n1") - n1_0
     n1 = phase_n1(recorded, dev, name)
     del recorded
-    nms_kernel.launch_count = 0
+    n1_0 = cuda_graphs.launches("n1")
     paths = phase_paths(calibrated, templates_np, fixtures, dev, name)
-    launches += nms_kernel.launch_count
+    launches += cuda_graphs.launches("n1") - n1_0
     out = {"card": name, "n1": n1, "graphs": graphs, "fp32_buckets": fp32_buckets, "paths": paths,
            "phase_s": time.perf_counter() - t0}
     print(f"phase 29 (the compiled pyramid, N1) took {out['phase_s']:.1f} s, N1 launched {launches} "
@@ -3969,11 +3970,11 @@ def main() -> None:
     dist_result["agreed_stop"], stop_launches = phase_agreed_stop(name)
     t_dist = time.perf_counter() - t_dist
 
-    nms_kernel.launch_count = 0
+    n1_0 = cuda_graphs.launches("n1")
     model, vs_cpu = phase_inference_vs_cpu(templates_np, dev)
     full = phase_full_width(model, templates_np, dev, name)
     served = phase_sweep_and_service(model, templates_np, dev)
-    n1_launches = nms_kernel.launch_count
+    n1_launches = cuda_graphs.launches("n1") - n1_0
     check(n1_launches > 0, "phases 5-7 ran the pyramid on the card without launching N1")
     t0 = time.perf_counter()
     dist_result["eval"] = phase_eval_distributed(model, templates_np, dev, name)

@@ -25,8 +25,8 @@ import tools.train_soak as jax_soak
 from tinyfaces_tpu_torch import main as train_cli
 from tinyfaces_tpu_torch.evaluation import write_results
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
-from tinyfaces_tpu_torch.ops import assignment_kernel
 from tinyfaces_tpu_torch.tools import ap_cost, e2e_accuracy, parity_run, recall_bands, train_soak
+from tinyfaces_tpu_torch.utils import graphs
 
 
 def _files(root: Path) -> dict:
@@ -127,7 +127,7 @@ def test_run_main_argv_sigterm_and_launches(tmp_path, monkeypatch):
 
 def test_training_cli_reports_its_launches(monkeypatch, capsys):
     monkeypatch.setattr(train_cli, "run", lambda args: None)
-    monkeypatch.setattr(assignment_kernel, "launch_count", 5)
+    monkeypatch.setattr(graphs, "launches", lambda kernel: {"k1": 5}.get(kernel, 0))
     train_cli.main(["t.txt", "v.txt", "--device", "cpu"])
     assert train_soak.kernel_launches(capsys.readouterr().out) == 5
 

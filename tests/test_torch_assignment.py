@@ -183,10 +183,10 @@ def test_build_targets_matches_jax():
 
 def test_cpu_dispatch_counts_no_launch():
     """CPU tensors take the twin: the kernel's launch counter stays put."""
-    from tinyfaces_tpu_torch.ops import assignment_kernel
+    from tinyfaces_tpu_torch.utils import graphs
 
-    before = assignment_kernel.launch_count
+    before = graphs.launches("k1")
     templates, gt, valid = make_scene(0)
     dense_assignment_reductions(t(gt)[None], t(valid)[None], t(templates),
                                 torch.zeros(1, dtype=torch.int32), vsx=8, vsy=8, **RF)
-    assert assignment_kernel.launch_count == before
+    assert graphs.launches("k1") == before

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_graphs import fake_captured  # noqa: F401
 from tinyfaces_tpu import evaluation as jax_eval
 from tinyfaces_tpu.models.detection import TinyFacesDetector as JaxDetector
 from tinyfaces_tpu_torch import evaluation
@@ -108,6 +109,7 @@ class _FakeCache:
 
     def __init__(self, device):
         self.device, self.graphs, self.warm, self.eager_runs = device, {}, set(), 0
+        self.stream = self.pool = None
         self.threads = set()
 
     def eager(self, run, *args):
@@ -119,47 +121,37 @@ class _FakeCache:
         return threading.get_ident() in self.threads
 
 
-class _FakeCaptured:
-    """CapturedPyramid without a card: a replay runs the pyramid eagerly."""
-
-    captures = 0
-
-    def __init__(self, run, images_h, meta_h, cache):
-        type(self).captures += 1
-        self.run, self.device, self.replays = run, cache.device, 0
-
-    def replay(self, images, meta):
-        self.replays += 1
-        return self.run(images.to(self.device), meta.to(self.device))
+def _captures(fake) -> int:
+    return sum(kind == "capture" for kind, _ in fake.events)
 
 
-def test_a_key_is_captured_at_its_second_call(monkeypatch):
+def test_a_key_is_captured_at_its_second_call(monkeypatch, fake_captured):
     """A key's first call runs eagerly (in the replica's pool), its second
     captures and replays, later ones replay; a one-shot caller never
-    captures. The outputs are the eager detector's."""
+    captures. The outputs are the eager detector's. The graph is
+    tests/test_torch_graphs.py's FakeCaptured: a replay runs the pyramid
+    eagerly."""
     ref = evaluation.PyramidDetector(_model(), TEMPLATES, DetectorConfig(), EC, device="cpu")
     want = ref.detect_batch(_images(0), prob_thresh=0.02)
     monkeypatch.setattr(evaluation.PyramidDetector, "eager_reason", lambda self, device, mode: None)
-    monkeypatch.setattr(evaluation, "CapturedPyramid", _FakeCaptured)
-    monkeypatch.setattr(_FakeCaptured, "captures", 0)
     det = evaluation.PyramidDetector(_model(), TEMPLATES, DetectorConfig(), EC, device="cpu")
     cache = _FakeCache(det.replicas[0].device)
     det.replicas[0] = det.replicas[0]._replace(cache=cache)
     got = []
     for i in range(3):
         got.append(det.detect_batch(_images(0), prob_thresh=0.02))
-        assert (cache.eager_runs, _FakeCaptured.captures, len(cache.graphs)) == (1, min(i, 1), min(i, 1))
+        assert (cache.eager_runs, _captures(fake_captured), len(cache.graphs)) == (1, min(i, 1), min(i, 1))
         assert len(cache.warm) == (1 if i == 0 else 0)
     (prog,) = cache.graphs.values()
     assert prog.replays == 2
     det.detect_batch(_images(0), prob_thresh=0.02, nms_thresh=0.5)  # a new key: eager again
-    assert (cache.eager_runs, _FakeCaptured.captures, len(cache.warm)) == (2, 1, 1)
+    assert (cache.eager_runs, _captures(fake_captured), len(cache.warm)) == (2, 1, 1)
     # the new key's second call on a thread that never ran eagerly: eager
     # there first (its cuDNN and cuBLAS handles), then that thread captures
     with ThreadPoolExecutor(1) as pool:
         for runs, captures in ((3, 1), (3, 2)):
             pool.submit(det.detect_batch, _images(0), prob_thresh=0.02, nms_thresh=0.5).result()
-            assert (cache.eager_runs, _FakeCaptured.captures) == (runs, captures)
+            assert (cache.eager_runs, _captures(fake_captured)) == (runs, captures)
     for g in got:
         for a, b in zip(g, want):
             np.testing.assert_array_equal(a, b)

@@ -1,77 +1,51 @@
 """Which route Trainer.train_step takes, on the CPU.
 
 On a CUDA card, in one process and with nan_guard off, the Trainer's steps
-are replays of one captured CUDA graph (trainer._CapturedSteps): an eager
+are replays of one captured CUDA graph (trainer.TrainSteps): an eager
 warm-up step, then a capture and its replay, then replays, and a capture
 again for a new learning rate, and a new batch shape warms up eagerly
 before its capture. Everywhere else the step is the eager train_step. Here
-the graph is a stub that runs the plain step on the draws it is handed, so
-the order of the route, its counter, its spans and its invalidation are
-checked on the CPU, and the stubbed route is held bit-equal to eager steps.
+the graph is tests/test_torch_graphs.py's FakeCaptured, which runs the
+plain step on the draws it is handed, so the order of the route, its
+counter, its spans and its invalidation are checked on the CPU, and the
+faked route is held bit-equal to eager steps.
 chip_smoke.py holds the real graph to eager steps on a card. The step's
 eager work and its capture run under cuDNN's timed engine search
 (trainer.timed_engines), which sets `benchmark` alone and leaves the
 caller's other flags as they are.
 """
 
-import contextlib
 import weakref
 
 import pytest
 import torch
 
+from tests.test_torch_graphs import FakeGraph, fake_captured, install_fake_graphs  # noqa: F401
 from tests.test_torch_trainer import CFG, TC, _batch, _dataset, _port_model
 from tinyfaces_tpu_torch import trainer as trainer_mod
 from tinyfaces_tpu_torch.config import TrainConfig
 from tinyfaces_tpu_torch.data import load_templates
 from tinyfaces_tpu_torch.parallel import distributed
 from tinyfaces_tpu_torch.trainer import Trainer, replays_step
-from tinyfaces_tpu_torch.utils import profiling
+from tinyfaces_tpu_torch.utils import graphs, profiling
 
 torch.set_num_threads(2)
 
 EAGER = {"eager": 2, "captured": 0, "replayed": 0, "tuned": 1}
 
 
-class StubCaptured:
-    """Stands for trainer._Captured on the CPU: its capture records the key
-    and checks that no earlier graph is alive; its replay runs the plain
-    step on the draws it is handed."""
-
-    events: list = []
-    made: list = []
-
-    def __init__(self, model, opt, batch, draws, *, cfg, templates, lr):
-        assert all(ref() is None for ref in StubCaptured.made), "an old graph outlived the capture"
-        StubCaptured.made.append(weakref.ref(self))
-        StubCaptured.events.append(("capture", lr))
-        self.key = self.key_of(batch, lr)
-        self.step = lambda b, d: trainer_mod.train_step(model, opt, b, None, cfg=cfg,
-                                                        templates=templates, lr=lr, draws=d)
-
-    key_of = staticmethod(trainer_mod._Captured.key_of)
-
-    def replay(self, batch, draws):
-        StubCaptured.events.append(("replay", None))
-        return torch.stack(list(self.step(batch, draws)))
-
-
 class Refused:
     def __init__(self, *args, **kwargs):
         raise AssertionError("an eager route captured a graph")
 
-    key_of = staticmethod(trainer_mod._Captured.key_of)
-
 
 @pytest.fixture
-def stub(monkeypatch):
-    """The route forced on, the graph a stub; spans recorded."""
-    StubCaptured.events, StubCaptured.made = [], []
+def stub(fake_captured, monkeypatch):
+    """The route forced on, the graph a FakeCaptured; spans recorded."""
     monkeypatch.setattr(trainer_mod, "replays_step", lambda device, nan_guard: True)
-    monkeypatch.setattr(trainer_mod, "_Captured", StubCaptured)
     profiling.enable()
     profiling.reset()
-    yield StubCaptured
+    yield fake_captured
     profiling.enable(False)
     profiling.reset()
 
@@ -123,7 +97,7 @@ def test_eager_where_the_route_does_not_hold(monkeypatch, case):
     """On the CPU; and with nan_guard on or under a world of 2 where the
     device counts as a card: every step is the eager train_step, counted
     as such, its span's path `eager`, and nothing is captured."""
-    monkeypatch.setattr(trainer_mod, "_Captured", Refused)
+    monkeypatch.setattr(graphs, "Captured", Refused)
     if case != "cpu":
         real = trainer_mod.replays_step
         monkeypatch.setattr(trainer_mod, "replays_step",
@@ -137,7 +111,7 @@ def test_eager_where_the_route_does_not_hold(monkeypatch, case):
         items = _dataset(4, seed=1)
         for i in range(2):
             assert torch.isfinite(t.train_step(_batch(items[2 * i:2 * i + 2])).total)
-        assert t.step_counts == EAGER and t._captured.graph is None
+        assert t.step_counts == EAGER and t._steps.graph is None
         assert _paths() == ["eager", "eager"]
     finally:
         profiling.enable(False)
@@ -153,11 +127,16 @@ def test_warm_up_capture_replays_and_recapture(stub, monkeypatch):
     graphed = _trainer(tc, steps_per_epoch=3)
     items = _dataset(10, seed=2)
     batches = [_batch(items[2 * i:2 * i + 2]) for i in range(5)]
-    got = [torch.stack(list(graphed.train_step(b))) for b in batches]
+    got, keys = [], []
+    for b in batches:
+        got.append(torch.stack(list(graphed.train_step(b))))
+        keys.append(graphed._steps.key)
     assert graphed.schedule(2) != graphed.schedule(3)
     assert _paths() == ["eager", "capture", "replay", "capture", "replay"]
     assert [e[0] for e in stub.events] == ["capture", "replay", "replay", "capture", "replay", "replay"]
-    assert [e[1] for e in stub.events if e[0] == "capture"] == [graphed.schedule(1), graphed.schedule(3)]
+    assert [e[1] for e in stub.events if e[0] == "capture"] == [0, 0]  # no old graph alive
+    assert [k and k[0] for k in keys] == [None, graphed.schedule(1), graphed.schedule(1),
+                                          graphed.schedule(3), graphed.schedule(3)]
     assert graphed.step_counts == {"eager": 1, "captured": 2, "replayed": 4, "tuned": 1}
 
     monkeypatch.setattr(trainer_mod, "replays_step", lambda device, nan_guard: False)
@@ -178,13 +157,13 @@ def test_setup_and_restore_drop_the_graph(stub, tmp_path, how):
     items = _dataset(4, seed=4)
     for i in range(2):
         t.train_step(_batch(items[2 * i:2 * i + 2]))
-    graph = weakref.ref(t._captured.graph)
+    graph = weakref.ref(t._steps.graph)
     if how == "setup":
         t.setup(steps_per_epoch=10)
     else:
         path = trainer_mod.save_checkpoint(t.model, t.opt, t.step, 0, 2, save_path=tmp_path)
         t.restore(trainer_mod.load_checkpoint(path))
-    assert t._captured.graph is None and graph() is None
+    assert t._steps.graph is None and graph() is None
     t.train_step(_batch(items[:2]))
     t.train_step(_batch(items[2:]))
     assert _paths() == ["eager", "capture", "eager", "capture"]
@@ -198,7 +177,7 @@ def test_no_reference_cycle_keeps_the_graph(stub):
     items = _dataset(4, seed=5)
     for i in range(2):
         t.train_step(_batch(items[2 * i:2 * i + 2]))
-    graph = weakref.ref(t._captured.graph)
+    graph = weakref.ref(t._steps.graph)
     del t
     assert graph() is None
 
@@ -228,8 +207,9 @@ def test_epoch_end_logs_the_replayed_steps(stub, tmp_path):
 def test_warm_up_per_batch_shape(stub, monkeypatch):
     """A batch shape not seen since the last drop runs one eager step (the
     warm-up, cuDNN's timed search) before its capture, and the old graph is
-    gone before it; shapes warmed up before only capture again; setup()
-    forgets them. Every step bit-equal to an eager Trainer's."""
+    gone before it; shapes warmed up before only capture again, also after
+    another shape's warm-up dropped their graph; setup() forgets them.
+    Every step bit-equal to an eager Trainer's."""
     items = _dataset(22, seed=7)
     rows = [2, 2, 2, 3, 3, 3, 2, 2, 3]
     batches, at = [], 0
@@ -237,19 +217,22 @@ def test_warm_up_per_batch_shape(stub, monkeypatch):
         batches.append(_batch(items[at:at + n]))
         at += n
     graphed = _trainer()
-    got, graphs = [], []
+    got, alive = [], []
     for b in batches[:7]:
         got.append(torch.stack(list(graphed.train_step(b))))
-        graphs.append(graphed._captured.graph is not None)
+        alive.append(graphed._steps.graph is not None)
     assert _paths() == ["eager", "capture", "replay", "eager", "capture", "replay", "capture"]
-    assert graphs == [False, True, True, False, True, True, True]  # none across a warm-up
+    assert alive == [False, True, True, False, True, True, True]  # none across a warm-up
+    assert all(n == 0 for kind, n in stub.events if kind == "capture")
     assert graphed.step_counts == {"eager": 2, "captured": 3, "replayed": 5, "tuned": 2}
     assert [s.attrs["tuned"] for s in profiling.spans() if s.name == "train.step"] == [1, 0, 0, 1, 0, 0, 0]
-    assert (graphed._captured.path(batches[7], graphed.schedule(graphed.step)), graphed._captured.path(
+    assert (graphed._steps.path(batches[7], graphed.schedule(graphed.step)), graphed._steps.path(
         batches[8], graphed.schedule(graphed.step))) == ("replay", "capture")
     state = [x.clone() for x in _state(graphed)]
+    graphed.train_step(_batch(_dataset(4, seed=11)))  # a third shape's warm-up drops the graph
+    assert graphed._steps.path(batches[7], graphed.schedule(graphed.step)) == "capture"
     graphed.setup(steps_per_epoch=10)
-    assert graphed._captured.path(batches[7], graphed.schedule(0)) == "eager"
+    assert graphed._steps.path(batches[7], graphed.schedule(0)) == "eager"
 
     monkeypatch.setattr(trainer_mod, "replays_step", lambda device, nan_guard: False)
     eager = _trainer()
@@ -269,22 +252,14 @@ def _cudnn_flags() -> dict:
             "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
 
 
-class _FakeGraph:
-    """torch.cuda.CUDAGraph on the CPU: the capture runs the step once."""
-
-
-@contextlib.contextmanager
-def _fake_capture(graph, capture_error_mode):
-    yield
-
-
 @pytest.mark.parametrize("caller", ["fp32_deterministic", "tf32"])
 @pytest.mark.parametrize("route", ["eager", "warm_up", "capture"])
 def test_timed_search_inside_the_step_caller_flags_kept(monkeypatch, route, caller):
-    """Inside the eager step, the warm-up and the capture (a fake graph on
-    the CPU) cuDNN's timed search is on, in the forward and in the backward
-    pass, with the caller's TF32, determinism and `enabled` as they were;
-    after the step every global flag is the caller's again."""
+    """Inside the eager step, the warm-up and the capture (the second step,
+    a fake graph on the CPU: tests/test_torch_graphs.py) cuDNN's timed
+    search is on, in the forward and in the backward pass, with the
+    caller's TF32, determinism and `enabled` as they were; after the step
+    every global flag is the caller's again."""
     fp32 = caller == "fp32_deterministic"
     seen = []
     t = _trainer()
@@ -297,17 +272,17 @@ def test_timed_search_inside_the_step_caller_flags_kept(monkeypatch, route, call
         monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", not fp32)
         before = _cudnn_flags()
         if route == "capture":
-            monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
-            monkeypatch.setattr(torch.cuda, "graph", _fake_capture)
-            gen = t.step_generator()
-            draws = trainer_mod.step_draws(gen, 2, trainer_mod._n_anchors(CFG))
-            captured = trainer_mod._Captured(t.model, t.opt, batch, draws, cfg=CFG,
-                                             templates=t.templates_t, lr=1e-3)
-            assert torch.isfinite(captured.losses.total)
+            install_fake_graphs(monkeypatch)
+            monkeypatch.setattr(trainer_mod, "replays_step", lambda device, nan_guard: True)
+            t.train_step(batch)  # the warm-up
+            seen.clear()
+            assert torch.isfinite(t.train_step(batch).total)
+            assert t.step_counts == {"eager": 1, "captured": 1, "replayed": 1, "tuned": 1}
+            assert isinstance(t._steps.graph.graph, FakeGraph)
         else:
             if route == "warm_up":
                 monkeypatch.setattr(trainer_mod, "replays_step", lambda device, nan_guard: True)
-                monkeypatch.setattr(trainer_mod, "_Captured", Refused)
+                monkeypatch.setattr(graphs, "Captured", Refused)
             assert torch.isfinite(t.train_step(batch).total)
             assert t.step_counts["tuned"] == 1
         after = _cudnn_flags()

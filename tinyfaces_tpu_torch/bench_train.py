@@ -118,7 +118,7 @@ def run(trainer, host_batches: Sequence[dict], *, windows: int, steps_per_window
     (uploaded with non_blocking); img/s per window, device synchronised at
     each window's end. `k1_launches` counts every step's, the warm-up's
     too."""
-    from tinyfaces_tpu_torch.ops import assignment_kernel
+    from tinyfaces_tpu_torch.utils import graphs
     from tinyfaces_tpu_torch.utils.instruments import peak_gib, reset_peak, sync
 
     dev = torch.device(trainer.device)
@@ -127,7 +127,7 @@ def run(trainer, host_batches: Sequence[dict], *, windows: int, steps_per_window
     def step(host):
         return trainer.train_step({k: v.to(dev, non_blocking=True) for k, v in host.items()})
 
-    launches0 = assignment_kernel.launch_count
+    launches0 = graphs.launches("k1")
     t0 = time.perf_counter()
     lb = step(host_batches[0])
     first_loss = float(lb.total)
@@ -143,7 +143,7 @@ def run(trainer, host_batches: Sequence[dict], *, windows: int, steps_per_window
     steps = windows * steps_per_window
     return {"value": float(np.median(rates)), "window_rates": rates, "warmup_s": warmup_s,
             "first_loss": first_loss, "last_loss": float(lb.total), "steps": steps,
-            "k1_launches": assignment_kernel.launch_count - launches0, "peak_gib": peak_gib(dev)}
+            "k1_launches": graphs.launches("k1") - launches0, "peak_gib": peak_gib(dev)}
 
 
 def yuv420_pack(b: dict) -> dict:

@@ -37,7 +37,7 @@ smaller than the card count and batch otherwise (spatial.choose_mode).
 
 The compiled pyramid. The JAX package jits `fused_pyramid` once per static
 key (tinyfaces_tpu/evaluation.py:453-457); its counterpart here is one
-`torch.cuda.CUDAGraph` per `ProgramKey` and replica: the JAX program's
+CUDA graph (utils/graphs.py) per `ProgramKey` and replica: the JAX program's
 static arguments (scales, h0p, w0p, prob_thresh, nms_thresh, transfer) plus
 what the port's shapes add (the replica's batch rows, the model's dtype,
 the resample kernel and the `pil` taps). A key's first call runs the
@@ -76,7 +76,6 @@ import contextlib
 import copy
 import gc
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple, Optional, Sequence
@@ -92,13 +91,13 @@ from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
 from tinyfaces_tpu_torch.models.resnet import ARCH_STAGES
 from tinyfaces_tpu_torch.ops.decode import decode_scores, valid_template_mask
 from tinyfaces_tpu_torch.ops.jpeg import dct4_batch_to_normalized, dct_batch_to_normalized
-from tinyfaces_tpu_torch.ops import nms_kernel
 from tinyfaces_tpu_torch.ops.nms import batched_nms_padded
 from tinyfaces_tpu_torch.ops.pilresize import max_taps, resize_pil_batch
 from tinyfaces_tpu_torch.ops.resize import resize_batch
 from tinyfaces_tpu_torch.ops.stemfold import folded_stem_2x
 from tinyfaces_tpu_torch.parallel.mesh import check_shard, split_batch
 from tinyfaces_tpu_torch.parallel.spatial import choose_mode, spatial_forward
+from tinyfaces_tpu_torch.utils import graphs
 from tinyfaces_tpu_torch.utils.convert import from_npz, from_reference_pth
 
 TRANSFERS = ("rgb", "yuv420", "jpegdct", "jpegdct4")
@@ -236,36 +235,6 @@ class ProgramKey(NamedTuple):
     taps: Optional[tuple]
 
 
-class CapturedPyramid:
-    """One pyramid captured into a CUDA graph over static buffers: `images`
-    (the wire) and `meta` (true and level sizes) are filled before each
-    replay, `out` holds the packed (B, K, 6) detections after it. Captured
-    on `cache`'s stream into its pool, from host tensors shaped as the
-    inputs of every replay."""
-
-    def __init__(self, run, images_h: torch.Tensor, meta_h: torch.Tensor, cache: "GraphCache"):
-        with torch.cuda.use_mem_pool(cache.pool, cache.device):  # released with the pool
-            self.images = torch.empty(images_h.shape, dtype=images_h.dtype, device=cache.device)
-            self.meta = torch.empty(meta_h.shape, dtype=meta_h.dtype, device=cache.device)
-        t0 = time.perf_counter()
-        n1 = nms_kernel.captured_count
-        self.graph = torch.cuda.CUDAGraph()
-        # thread_local: the caller's pack thread may allocate pinned memory
-        # while this thread captures
-        with torch.cuda.graph(self.graph, pool=cache.pool.id, stream=cache.stream,
-                              capture_error_mode="thread_local"):
-            self.out = run(self.images, self.meta)
-        self.capture_s = time.perf_counter() - t0
-        self.n1_launches = nms_kernel.captured_count - n1
-
-    def replay(self, images: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
-        self.images.copy_(images, non_blocking=True)
-        self.meta.copy_(meta, non_blocking=True)
-        self.graph.replay()
-        nms_kernel.count_replay(self.n1_launches)
-        return self.out
-
-
 class GraphCache:
     """One CUDA replica's compiled pyramids: the captured graph of every
     ProgramKey called at least twice, the keys called once (`warm`), and
@@ -310,14 +279,9 @@ class GraphCache:
         return getattr(self._thread, "warmed", False)
 
     def _pooled(self, run, *args) -> torch.Tensor:
-        current = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(current)
-        try:
-            with torch.cuda.stream(self.stream), torch.cuda.use_mem_pool(self.pool, self.device):
-                out = run(*args)
-        finally:
-            current.wait_stream(self.stream)
-        out.record_stream(current)
+        with graphs.side_stream(self.device, self.stream, self.pool):
+            out = run(*args)
+        out.record_stream(torch.cuda.current_stream(self.device))
         return out
 
     def release(self) -> None:
@@ -444,7 +408,7 @@ class PyramidDetector:
         reserves."""
         return [{"device": str(r.device), "graphs": len(r.cache.graphs),
                  "capture_s": [p.capture_s for p in r.cache.graphs.values()],
-                 "n1_launches": [p.n1_launches for p in r.cache.graphs.values()],
+                 "n1_launches": [p.tally["n1"] for p in r.cache.graphs.values()],
                  "warm_keys": len(r.cache.warm), "releases": r.cache.releases,
                  "pool_reserved_bytes": r.cache.reserved_bytes()}
                 for r in self.replicas if r.cache is not None]
@@ -649,7 +613,8 @@ class PyramidDetector:
             cache.warm.add(key)
             return out
         if prog is None:
-            prog = cache.graphs[key] = CapturedPyramid(run, images_h, meta_h, cache)
+            prog = cache.graphs[key] = graphs.Captured(run, images_h, meta_h, device=cache.device,
+                                                       stream=cache.stream, pool=cache.pool)
             cache.warm.discard(key)
         return prog.replay(images_h, meta_h)
 

@@ -53,11 +53,11 @@ from tinyfaces_tpu_torch.config import DetectorConfig, TrainConfig
 from tinyfaces_tpu_torch.data import get_dataloader
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
 from tinyfaces_tpu_torch.models.resnet import ARCH_STAGES
-from tinyfaces_tpu_torch.ops import assignment_kernel
 from tinyfaces_tpu_torch.parallel import distributed
 from tinyfaces_tpu_torch.parallel.distributed import GracefulStop
 from tinyfaces_tpu_torch.trainer import (Trainer, load_checkpoint, save_checkpoint,
                                          wait_for_checkpoints)
+from tinyfaces_tpu_torch.utils import graphs
 from tinyfaces_tpu_torch.utils.profiling import trace
 
 NUM_TEMPLATES = 25  # aka the number of clusters
@@ -251,8 +251,7 @@ def main(argv=None) -> None:
     run(arguments(argv))
     # For a parent that drives this CLI as a child process (tools/train_soak.py):
     # the GT-assignment kernel's launches in this process.
-    print(f"kernel launches: dense_assignment_reductions {assignment_kernel.launch_count}",
-          flush=True)
+    print(f"kernel launches: dense_assignment_reductions {graphs.launches('k1')}", flush=True)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,7 @@ materializes it; the CPU runs and the kernel's checks use it.
 
 Dispatch follows the tensors' device: CUDA tensors launch the kernel, CPU
 tensors take the twin. A kernel that fails to build or launch raises; there
-is no fallback.
+is no fallback. Each launch counts as "k1" in utils/graphs.launches.
 
 The tie-break noise is 1e-6 * U[0, 1), as in the reference
 (processor.py:193-195); it only decides anchors whose IoUs tie to within
@@ -30,17 +30,10 @@ import torch
 
 from tinyfaces_tpu_torch.ops.assignment import compose_targets
 from tinyfaces_tpu_torch.ops.dense_overlap import compute_dense_overlap
+from tinyfaces_tpu_torch.utils import graphs
 
 MAX_GT = 512  # shared-memory bound of the kernel
 NOISE_SCALE = 1e-6
-
-# Number of kernel launches in this process; a run reads it to show that the
-# main path went through the kernel. A launch made while a CUDA graph is
-# being captured only records the kernel into the graph: it counts in
-# `captured_count`, and each replay of that graph counts its launches
-# (`count_replay`).
-launch_count = 0
-captured_count = 0
 
 _fn = None
 
@@ -122,7 +115,6 @@ def _kernel():
 
 
 def _launch(gt_boxes, gt_valid, templates, seed, *, vsx, vsy, ofx, ofy, stx, sty, noise):
-    global launch_count
     dev = gt_boxes.device
     b, g, _ = gt_boxes.shape
     if not 1 <= g <= MAX_GT:
@@ -152,19 +144,8 @@ def _launch(gt_boxes, gt_valid, templates, seed, *, vsx, vsy, ofx, ofy, stx, sty
         )
     if err != 0:
         raise RuntimeError(f"dense_assignment kernel launch failed: cudaError {err}")
-    if torch.cuda.is_current_stream_capturing():
-        global captured_count
-        captured_count += 1
-    else:
-        launch_count += 1
+    graphs.count_launch("k1")
     return best_iou, best_gt, pgt_max, pgt_idx
-
-
-def count_replay(launches: int) -> None:
-    """A replay of a CUDA graph that holds `launches` recorded launches of
-    the kernel has run them."""
-    global launch_count
-    launch_count += launches
 
 
 def perturbed_iou(

@@ -25,6 +25,7 @@ chip_smoke.py holds the kernel against both on the card.
 ops/nms.nms is the one dispatch point: CPU tensors take its plain
 fixpoint, any other tensors go to `_launch`, which takes CUDA tensors only
 and raises when the kernel fails to build or launch; there is no fallback.
+Each launch counts as "n1" in utils/graphs.launches.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import ctypes
 import torch
 
 from tinyfaces_tpu_torch.ops.boxes import pairwise_iou
+from tinyfaces_tpu_torch.utils import graphs
 
 CHUNK = 64  # rows resolved together (csrc/nms.cu kChunk)
 MAX_N = 65536  # candidates an image (csrc/nms.cu kMaxN): 16-bit row numbers
@@ -57,14 +59,6 @@ OPS_PER_PAIR = 14
 CLOCK_HZ = 1.98e9
 ROUND_CYCLES = 30
 BARRIER_CYCLES = 20
-
-# Number of kernel launches in this process (one per wrapper call); a run
-# reads it to show that the main path went through the kernel. A launch made
-# while a CUDA graph is being captured only records the kernel: it counts in
-# `captured_count`, and each replay of that graph counts its launches
-# (`count_replay`).
-launch_count = 0
-captured_count = 0
 
 _fn = None
 
@@ -226,7 +220,6 @@ def launch_geometry(b: int, n: int, device: torch.device) -> dict:
 def _launch(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """N1's keep mask of rank-sorted CUDA tensors, launched on the current
     stream in launch_shape(B)."""
-    global launch_count, captured_count
     if not boxes.is_cuda:
         raise ValueError(f"N1 runs on CUDA tensors; boxes are on {boxes.device}")
     if valid.device != boxes.device:
@@ -248,15 +241,5 @@ def _launch(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> t
                         stream)
     if err != 0:
         raise RuntimeError(f"nms kernel launch failed: cudaError {err}")
-    if torch.cuda.is_current_stream_capturing():
-        captured_count += 1
-    else:
-        launch_count += 1
+    graphs.count_launch("n1")
     return keep
-
-
-def count_replay(launches: int) -> None:
-    """A replay of a CUDA graph that holds `launches` recorded launches of
-    the kernel has run them."""
-    global launch_count
-    launch_count += launches

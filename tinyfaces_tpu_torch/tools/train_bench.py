@@ -43,8 +43,8 @@ def run(trainer, make_batch: Callable[[], dict], iters: int) -> dict:
     from make_batch() uploaded inside the loop; the device is synchronised
     before the clock stops. Returns the rates, every step's loss (warm-up
     first) and K1's launches in all of them."""
-    from tinyfaces_tpu_torch.ops import assignment_kernel
     from tinyfaces_tpu_torch.trainer import replays_step
+    from tinyfaces_tpu_torch.utils import graphs
     from tinyfaces_tpu_torch.utils.instruments import peak_gib, reset_peak, sync
 
     dev = torch.device(trainer.device)
@@ -53,7 +53,7 @@ def run(trainer, make_batch: Callable[[], dict], iters: int) -> dict:
         host = pinned(make_batch(), dev)
         return trainer.train_step({k: v.to(dev, non_blocking=True) for k, v in host.items()})
 
-    launches0 = assignment_kernel.launch_count
+    launches0 = graphs.launches("k1")
     t0 = time.perf_counter()
     losses = [step().total]
     if replays_step(dev, trainer.nan_guard):
@@ -69,7 +69,7 @@ def run(trainer, make_batch: Callable[[], dict], iters: int) -> dict:
     return {"first_step_s": first_s, "ms_per_step": 1e3 * dt, "img_per_s": batch / dt,
             "losses": [float(x) for x in losses], "iters": iters,
             "warmup_steps": len(losses) - iters, "batch": batch,
-            "k1_launches": assignment_kernel.launch_count - launches0, "peak_gib": peak_gib(dev)}
+            "k1_launches": graphs.launches("k1") - launches0, "peak_gib": peak_gib(dev)}
 
 
 def run_multi(trainer, make_batch: Callable[[], dict], k: int, iters: int) -> dict:
@@ -79,8 +79,8 @@ def run_multi(trainer, make_batch: Callable[[], dict], k: int, iters: int) -> di
     device is synchronised before the clock stops. Returns the rates per
     step, every step's loss, K1's launches in all of them and the peak
     memory of the whole run (the capture's pool included)."""
-    from tinyfaces_tpu_torch.ops import assignment_kernel
     from tinyfaces_tpu_torch.trainer import make_multi_train_step
+    from tinyfaces_tpu_torch.utils import graphs
     from tinyfaces_tpu_torch.utils.instruments import peak_gib, reset_peak, sync
 
     dev = torch.device(trainer.device)
@@ -95,7 +95,7 @@ def run_multi(trainer, make_batch: Callable[[], dict], k: int, iters: int) -> di
         trainer.step += k
         return lbs.total
 
-    launches0 = assignment_kernel.launch_count
+    launches0 = graphs.launches("k1")
     # the graph's memory pool is allocated by the capture in the first call
     reset_peak(dev)
     t0 = time.perf_counter()
@@ -109,7 +109,7 @@ def run_multi(trainer, make_batch: Callable[[], dict], k: int, iters: int) -> di
     batch = trainer.tc.batch_size
     return {"first_call_s": first_s, "ms_per_step": 1e3 * dt, "img_per_s": batch / dt,
             "losses": [float(x) for x in torch.cat(losses)], "iters": iters, "k": k,
-            "batch": batch, "k1_launches": assignment_kernel.launch_count - launches0,
+            "batch": batch, "k1_launches": graphs.launches("k1") - launches0,
             "peak_gib": peak_gib(dev)}
 
 

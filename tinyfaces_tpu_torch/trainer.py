@@ -35,14 +35,16 @@ batch. The logged losses are all-reduced and averaged over the global
 rows; only rank 0 prints the console lines and writes the JSONL, and only
 rank 0 writes a checkpoint.
 
-On one CUDA card (one process, `nan_guard` off: `replays_step`) each of
-`Trainer.train_step`'s steps is a replay of one captured CUDA graph of the
-step (`_CapturedSteps`, which `make_multi_train_step` shares): the first
-step runs eagerly on a side stream, the next captures the step and replays
-it, a new learning rate captures again, and a new batch shape runs one
-eager step on the side stream before its capture. Everywhere else (the CPU,
-a process group, `nan_guard`) the step is the eager `train_step`.
-`Trainer.step_counts` counts the eager steps, the captures and the replays.
+Every step takes one route, `TrainSteps` (`Trainer.train_step` and
+`make_multi_train_step` both). On one CUDA card (one process, `nan_guard`
+off: `replays_step`) each step is a replay of one captured CUDA graph of
+the step (utils/graphs.py), its draws made outside the graph from the
+step's generator: the first step runs eagerly on a side stream, the next
+captures the step and replays it, a new learning rate captures again, and
+a new batch shape runs one eager step on the side stream before its
+capture. Everywhere else (the CPU, a process group, `nan_guard`) the step
+is the eager `train_step`. `Trainer.step_counts` counts the eager steps,
+the captures and the replays.
 
 The train step's convolutions run on the cuDNN engines that cuDNN's timed
 search picks (`timed_engines`, PyTorch's benchmark mode), not on its
@@ -53,7 +55,7 @@ captured route), and a capture or a later step reuses the plan it cached.
 last `setup`/`restore`.
 
 A step's spans (utils/profiling.py), when they record: `train.step`
-(`Trainer.train_step`, attributes `step`, `path`: `eager`, `capture` or
+(`TrainSteps.step`, attributes `step`, `path`: `eager`, `capture` or
 `replay`, and `tuned`: 1 where the step ran the timed search) around its
 phases `train.targets` (build_targets, K1's launch inside),
 `train.forward`, `train.loss`, `train.backward` and `train.update` (the
@@ -82,11 +84,11 @@ from tinyfaces_tpu_torch.data.loader import NativePrefetchLoader, PrefetchLoader
 from tinyfaces_tpu_torch.data.targets import build_targets
 from tinyfaces_tpu_torch.loss import AvgMeter, LossBreakdown, detection_loss
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector
-from tinyfaces_tpu_torch.ops import assignment_kernel
 from tinyfaces_tpu_torch.ops.assignment_kernel import draw_seeds
 from tinyfaces_tpu_torch.ops.sampling import draw_uniforms
 from tinyfaces_tpu_torch.parallel import distributed
 from tinyfaces_tpu_torch.parallel.mesh import rank_device
+from tinyfaces_tpu_torch.utils import graphs
 from tinyfaces_tpu_torch.utils.metrics_log import MetricsLogger
 from tinyfaces_tpu_torch.utils.profiling import StepTimer, span
 
@@ -265,47 +267,11 @@ def _step_body(model, opt, batch, generator, *, cfg, templates, lr, nan_guard, d
     return lb
 
 
-class _Captured:
-    """One train step captured into a CUDA graph, over static buffers: the
-    batch, K1's seeds and the sampling uniforms are copied in before each
-    replay, the losses read out after it. The capture checks the capturing
-    thread's CUDA calls alone: the loader's threads go on pinning host
-    memory and querying its copies' events meanwhile, which would
-    invalidate a capture in the global mode. The capture runs under
-    `timed_engines`, so it takes the plans the warm-up's search cached for
-    its shapes; it is never a convolution key's first call (a search inside
-    a capture would fail)."""
-
-    def __init__(self, model, opt, batch: dict, draws: dict, *, cfg, templates, lr: float):
-        self.batch = {k: torch.empty_like(v) for k, v in batch.items()}
-        self.draws = {"seeds": torch.empty_like(draws["seeds"]),
-                      "uniforms": tuple(torch.empty_like(u) for u in draws["uniforms"])}
-        self.key = self.key_of(batch, lr)
-        # The backward pass must allocate the gradients inside the graph's
-        # memory pool, so they are None when the capture starts.
-        opt.zero_grad(set_to_none=True)
-        captured = assignment_kernel.captured_count
-        self.graph = torch.cuda.CUDAGraph()
-        with timed_engines(), torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.losses = _step_body(model, opt, self.batch, None, cfg=cfg, templates=templates,
-                                     lr=lr, nan_guard=False, draws=self.draws)
-        self.k1_launches = assignment_kernel.captured_count - captured
-
-    @staticmethod
-    def key_of(batch: dict, lr: float) -> tuple:
-        return lr, _shapes_of(batch)
-
-    def replay(self, batch: dict, draws: dict) -> torch.Tensor:
-        """One step. Its phase spans were recorded once, by the capture."""
-        with span("train.replay"):
-            for k, v in batch.items():
-                self.batch[k].copy_(v)
-            self.draws["seeds"].copy_(draws["seeds"])
-            for static, u in zip(self.draws["uniforms"], draws["uniforms"]):
-                static.copy_(u)
-            self.graph.replay()
-            assignment_kernel.count_replay(self.k1_launches)
-            return torch.stack(list(self.losses))
+def replays_step(device: torch.device, nan_guard: bool) -> bool:
+    """Whether `TrainSteps` replays a captured graph of the step: on a CUDA
+    card, in one process (a process group's all-reduces are not captured)
+    and with `nan_guard` off (the captured step has no guard)."""
+    return device.type == "cuda" and distributed.world() == 1 and not nan_guard
 
 
 def _shapes_of(batch: dict) -> tuple:
@@ -314,77 +280,90 @@ def _shapes_of(batch: dict) -> tuple:
     return tuple((k, v.shape, v.dtype) for k, v in sorted(batch.items()))
 
 
-@contextlib.contextmanager
-def _side_stream(dev: torch.device):
-    """Run the enclosed work on a side stream of `dev` that waits for its
-    current stream, and make the current stream wait for it after: a
-    warm-up before a capture, so cuDNN's and cuBLAS's set-up happens
-    outside it. Off a card, the work runs as it is."""
-    if dev.type != "cuda":
-        yield
-        return
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        yield
-    torch.cuda.current_stream(dev).wait_stream(side)
+class TrainSteps:
+    """The train step's one route, which `Trainer.train_step` and
+    `make_multi_train_step` take. A step draws from `step_generator(seed,
+    step)` unless the caller hands it `draws`; a replayed step's draws are
+    `step_draws` of that generator, made outside the graph.
 
+    Where `replays_step` holds, a step at batch shapes not warmed up since
+    `drop()` runs eagerly on a side stream (the warm-up, in which cuDNN's
+    timed search picks each convolution's engine: `timed_engines`); the
+    next captures the step into one `graphs.Captured` and replays it; each
+    later step replays it, or captures again first where its key (lr,
+    shapes) is new (shapes warmed up before, or the staircase's next rate).
+    The old graph is dropped before a new capture or warm-up, so two memory
+    pools never coexist. Elsewhere each step is the eager `train_step`.
+    `drop()` forgets the graph and the warmed shapes: the next step is
+    eager again (a new optimizer has no momentum yet, and a capture would
+    bake in its first step's).
 
-class _CapturedSteps:
-    """Train steps on a card as replays of one captured CUDA graph (what
-    `make_multi_train_step` and `Trainer.train_step` share). A step at
-    batch shapes not seen since `drop()` runs eagerly on a side stream, the
-    warm-up, in which cuDNN's timed search picks each convolution's engine
-    (`timed_engines`); the next captures the step into a `_Captured` and
-    replays it; each later step replays it, or captures again first where
-    its `_Captured.key_of(batch, lr)` is new (shapes warmed up before, or
-    the staircase's next rate). The old graph is dropped before a new
-    capture or warm-up, so two memory pools never coexist. `drop()`
-    forgets the graph and the warmed shapes: the next step is eager again
-    (a new optimizer has no momentum yet, and a capture would bake in its
-    first step's)."""
+    `step_counts` counts the eager steps, the captures and the replayed
+    steps, and "tuned": the eager steps at shapes new since `drop()`, in
+    which cuDNN's timed search ran; `tuned_s` is their seconds, the
+    device's work included."""
 
     def __init__(self):
-        self.graph: Optional[_Captured] = None
+        self.graph: Optional[graphs.Captured] = None
+        self.key: Optional[tuple] = None  # (lr, shapes) of the graph
         self.warm: set = set()  # _shapes_of the batches warmed up since drop()
+        self.step_counts = {"eager": 0, "captured": 0, "replayed": 0, "tuned": 0}
+        self.tuned_s = 0.0
 
     def drop(self) -> None:
-        self.graph, self.warm = None, set()
+        self.graph, self.key, self.warm = None, None, set()
 
-    def path(self, batch: dict, lr: float) -> str:
-        """What `run` does next: "eager", "capture" (then replay) or "replay"."""
-        if _shapes_of(batch) not in self.warm:
+    def path(self, batch: dict, lr: float, graphed: bool = True) -> str:
+        """What the next step does: "eager", "capture" (then replay) or
+        "replay"; `graphed`: whether `replays_step` holds."""
+        shapes = _shapes_of(batch)
+        if not graphed or shapes not in self.warm:
             return "eager"
-        if self.graph is None or self.graph.key != _Captured.key_of(batch, lr):
-            return "capture"
-        return "replay"
+        return "replay" if self.key == (lr, shapes) else "capture"
 
-    def run(self, model, opt, batch: dict, draws: dict, *, cfg, templates, lr: float) -> torch.Tensor:
-        """One step with `draws` (step_draws' of the step); returns the (3,)
-        losses in a tensor of their own, which no later replay overwrites."""
-        path = self.path(batch, lr)
-        if path == "eager":
-            self.graph = None  # its shapes differ: free its pool, the next step captures
-            with _side_stream(batch["gt_boxes"].device):
-                losses = torch.stack(list(train_step(model, opt, batch, None, cfg=cfg,
-                                                     templates=templates, lr=lr, draws=draws)))
-            self.warm.add(_shapes_of(batch))
-            return losses
-        if path == "capture":
-            self.graph = None  # free its pool before the next capture
-            self.graph = _Captured(model, opt, batch, draws, cfg=cfg, templates=templates, lr=lr)
-        return self.graph.replay(batch, draws)
+    def step(self, model, opt, batch: dict, *, cfg, templates, lr: float, seed: int, step: int,
+             nan_guard: bool = False, draws: Optional[dict] = None) -> LossBreakdown:
+        """Step `step` at rate `lr`, in the span `train.step` (attributes
+        `step`, `path` and `tuned`); a tuned step is timed to its end on
+        the device. Replayed losses are copied out of the graph's buffers,
+        so no later replay overwrites them."""
+        dev = batch["gt_boxes"].device
+        graphed = replays_step(dev, nan_guard)
+        path = self.path(batch, lr, graphed)
+        tuned = _shapes_of(batch) not in self.warm
+        t0 = time.perf_counter()
+        with span("train.step", step=step, path=path, tuned=int(tuned)):
+            gen = step_generator(seed, step, dev)
+            if graphed:  # a graph takes the step's draws as inputs: made here, outside it
+                if draws is None:
+                    n_anchors = cfg.heatmap_size[0] * cfg.heatmap_size[1] * cfg.num_templates
+                    draws = step_draws(gen, batch["gt_boxes"].shape[0], n_anchors)
+                gen = None
 
+            def run(batch, draws):
+                return train_step(model, opt, batch, gen, cfg=cfg, templates=templates, lr=lr,
+                                  nan_guard=nan_guard, draws=draws)
 
-def replays_step(device: torch.device, nan_guard: bool) -> bool:
-    """Whether `Trainer.train_step` runs its steps through `_CapturedSteps`:
-    on a CUDA card, in one process (a process group's all-reduces are not
-    captured) and with `nan_guard` off (the captured step has no guard)."""
-    return device.type == "cuda" and distributed.world() == 1 and not nan_guard
-
-
-def _n_anchors(cfg: DetectorConfig) -> int:
-    return cfg.heatmap_size[0] * cfg.heatmap_size[1] * cfg.num_templates
+            if path == "eager":
+                self.graph = self.key = None  # free its pool: the next step captures
+                with graphs.side_stream(dev) if graphed else contextlib.nullcontext():
+                    lb = run(batch, draws)
+                self.warm.add(_shapes_of(batch))
+            else:
+                if path == "capture":
+                    self.graph = None  # free its pool before the next capture
+                    self.graph = graphs.Captured(run, batch, draws, device=dev)
+                    self.key = (lr, _shapes_of(batch))
+                with span("train.replay"):  # a replay's phase spans were recorded by its capture
+                    lb = LossBreakdown(*torch.stack(list(self.graph.replay(batch, draws))).unbind())
+            if tuned and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        if tuned:
+            self.tuned_s += time.perf_counter() - t0
+        self.step_counts["eager" if path == "eager" else "replayed"] += 1
+        self.step_counts["captured"] += path == "capture"
+        self.step_counts["tuned"] += tuned
+        return lb
 
 
 def make_multi_train_step(model: TinyFacesDetector, opt: torch.optim.SGD, cfg: DetectorConfig,
@@ -399,43 +378,27 @@ def make_multi_train_step(model: TinyFacesDetector, opt: torch.optim.SGD, cfg: D
     Trainer's steps draw them), or with `draws[k]` (tests feed JAX's). The
     K steps equal K calls of train_step.
 
-    On the CPU it is a plain loop of train_step. On CUDA the steps run
-    through `_CapturedSteps`, as Trainer.train_step's do on a card: the
-    first step at each batch shape eagerly on a side stream (cuDNN's timed
-    search runs there), the next captured into one CUDA graph, and each
-    step a replay: the batch and the step's draws, made outside the graph
-    from the step's generator, are copied into the graph's static buffers
-    first. The
-    learning rate stays a Python float in the optimizer, baked into the
-    graph: torch's SGD applies it as `add_(grad, alpha=-lr)`, and a tensor
-    rate would take another rounding path, so one graph is captured per
-    rate of the staircase schedule (and per batch shape). A capture that
-    fails raises; nothing falls back to the plain loop on CUDA. One process
-    only: a process group is refused."""
-    steps = _CapturedSteps()
+    The steps run through one `TrainSteps`, as Trainer.train_step's do: on
+    a card the first step at each batch shape eagerly on a side stream
+    (cuDNN's timed search runs there), the next captured into one CUDA
+    graph, and each step a replay. The learning rate stays a Python float
+    in the optimizer, baked into the graph: torch's SGD applies it as
+    `add_(grad, alpha=-lr)`, and a tensor rate would take another rounding
+    path, so one graph is captured per rate of the staircase schedule (and
+    per batch shape). A capture that fails raises; nothing falls back to
+    eager steps on a card. One process only: a process group is refused."""
+    steps = TrainSteps()
 
     def multi(batches: dict, seed: int, step: int, draws: Optional[list] = None) -> LossBreakdown:
         if distributed.world() > 1:
             raise ValueError("make_multi_train_step runs one process (the JAX tool runs it on "
                              f"one device); this process group has {distributed.world()} ranks")
-        k_steps = batches["gt_boxes"].shape[0]
-        dev = batches["gt_boxes"].device
         out = []
-        for k in range(k_steps):
-            batch = {name: v[k] for name, v in batches.items()}
-            gen = step_generator(seed, step + k, dev)
-            lr = schedule(step + k)
-            if dev.type != "cuda":
-                out.append(torch.stack(list(train_step(
-                    model, opt, batch, gen, cfg=cfg, templates=templates, lr=lr,
-                    draws=None if draws is None else draws[k]))))
-                continue
-            if draws is None:
-                d = step_draws(gen, batch["gt_boxes"].shape[0], _n_anchors(cfg))
-            else:
-                d = {"seeds": draws[k]["seeds"].to(dev),
-                     "uniforms": tuple(u.to(dev) for u in draws[k]["uniforms"])}
-            out.append(steps.run(model, opt, batch, d, cfg=cfg, templates=templates, lr=lr))
+        for k in range(batches["gt_boxes"].shape[0]):
+            lb = steps.step(model, opt, {name: v[k] for name, v in batches.items()}, cfg=cfg,
+                            templates=templates, lr=schedule(step + k), seed=seed, step=step + k,
+                            draws=None if draws is None else draws[k])
+            out.append(torch.stack(list(lb)))
         return LossBreakdown(*torch.stack(out).unbind(1))
 
     return multi
@@ -564,12 +527,7 @@ class Trainer:
         self.class_average = AvgMeter()
         self.reg_average = AvgMeter()
         self.skipped_steps = 0  # non-finite-loss steps seen
-        self._captured = _CapturedSteps()
-        # "tuned": the eager steps at shapes new since setup/restore, in
-        # which cuDNN's timed search ran; tuned_s their seconds, the device's
-        # work included
-        self.step_counts = {"eager": 0, "captured": 0, "replayed": 0, "tuned": 0}
-        self.tuned_s = 0.0
+        self._steps = TrainSteps()
         # one console and one JSONL per run: rank 0's
         self.metrics = MetricsLogger(self.metrics_path if self.rank == 0 else None)
 
@@ -578,14 +536,14 @@ class Trainer:
             distributed.broadcast_tensors([*self.model.parameters(), *self.model.buffers()])
 
     def setup(self, steps_per_epoch: int) -> None:
-        self._captured.drop()  # its graph baked in the old optimizer's momentum
+        self._steps.drop()  # its graph baked in the old optimizer's momentum
         self.opt = make_optimizer(self.model, self.tc)
         self.schedule = make_lr_schedule(self.tc, steps_per_epoch)
         self._broadcast_state()
 
     def restore(self, payload: dict) -> None:
         """Load a `load_checkpoint` payload into the model and optimizer."""
-        self._captured.drop()  # load_state_dict replaces the momentum a graph baked in
+        self._steps.drop()  # load_state_dict replaces the momentum a graph baked in
         self.model.load_state_dict(payload["model"])
         self.opt.load_state_dict(payload["optimizer"])
         self.step = int(payload["step"])
@@ -597,36 +555,21 @@ class Trainer:
     def step_generator(self) -> torch.Generator:
         return step_generator(self.seed, self.step, self.device)
 
+    @property
+    def step_counts(self) -> dict:
+        """TrainSteps.step_counts of this Trainer's steps."""
+        return self._steps.step_counts
+
+    @property
+    def tuned_s(self) -> float:
+        return self._steps.tuned_s
+
     def train_step(self, batch: dict) -> LossBreakdown:
-        """One step, in the span `train.step` (attributes `path`, `tuned`):
-        on a card where `replays_step` holds, a step of `_CapturedSteps`
-        with the draws made outside the graph from the step's generator;
-        else the eager `train_step`, its phases' spans inside. The first
-        step at new batch shapes is eager on either route, and runs cuDNN's
-        timed search (`tuned`); it is timed to its end on the device."""
-        lr = self.schedule(self.step)
-        graphed = replays_step(self.device, self.nan_guard)
-        tuned = _shapes_of(batch) not in self._captured.warm
-        path = self._captured.path(batch, lr) if graphed else "eager"
-        t0 = time.perf_counter()
-        with span("train.step", step=self.step, path=path, tuned=int(tuned)):
-            if graphed:
-                draws = step_draws(self.step_generator(), batch["gt_boxes"].shape[0],
-                                   _n_anchors(self.cfg))
-                lb = LossBreakdown(*self._captured.run(self.model, self.opt, batch, draws,
-                                                       cfg=self.cfg, templates=self.templates_t,
-                                                       lr=lr).unbind())
-            else:
-                lb = train_step(self.model, self.opt, batch, self.step_generator(), cfg=self.cfg,
-                                templates=self.templates_t, lr=lr, nan_guard=self.nan_guard)
-                self._captured.warm.add(_shapes_of(batch))
-            if tuned and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        if tuned:
-            self.tuned_s += time.perf_counter() - t0
-        self.step_counts["eager" if path == "eager" else "replayed"] += 1
-        self.step_counts["captured"] += path == "capture"
-        self.step_counts["tuned"] += tuned
+        """One step of the Trainer's `TrainSteps`, at the schedule's rate,
+        with the draws of `step_generator()`."""
+        lb = self._steps.step(self.model, self.opt, batch, cfg=self.cfg, templates=self.templates_t,
+                              lr=self.schedule(self.step), seed=self.seed, step=self.step,
+                              nan_guard=self.nan_guard)
         self.step += 1
         return lb
 
