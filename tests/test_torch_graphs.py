@@ -198,3 +198,45 @@ def test_counts_from_many_threads_add_up(monkeypatch):
     finally:
         sys.setswitchinterval(interval)
     assert graphs.launches("k1") == k1 + threads * per
+
+
+def test_two_threads_capturing_at_once_keep_their_own_tallies(monkeypatch):
+    """Each capture's tally holds its own thread's launches alone, also
+    when the other thread's capture starts inside it and ends before it
+    (the pyramid's submit thread beside the train step's capture)."""
+    install_fake_graphs(monkeypatch)
+    k1, n1 = graphs.launches("k1"), graphs.launches("n1")
+    both_in, b_done = threading.Barrier(2, timeout=30), threading.Event()
+    made, errors = {}, []
+
+    def fn_a(x):
+        graphs.count_launch("k1")
+        both_in.wait()
+        assert b_done.wait(30)
+        graphs.count_launch("k1")
+        return x
+
+    def fn_b(x):
+        both_in.wait()
+        graphs.count_launch("n1")
+        graphs.count_launch("n1")
+        return x
+
+    def capture(name, fn):
+        try:
+            made[name] = graphs.Captured(fn, torch.ones(1), device=CPU)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+        finally:
+            if name == "b":
+                b_done.set()
+
+    workers = [threading.Thread(target=capture, args=a) for a in (("a", fn_a), ("b", fn_b))]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=60)
+    assert not errors and not any(w.is_alive() for w in workers)
+    assert made["a"].tally == {"k1": 2}
+    assert made["b"].tally == {"n1": 2}
+    assert (graphs.launches("k1"), graphs.launches("n1")) == (k1, n1)

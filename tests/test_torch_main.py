@@ -13,6 +13,7 @@ exits; without `--bf16` TF32 is off. A reference .pth reads as the JAX package's
 """
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import os
@@ -37,7 +38,7 @@ from tinyfaces_tpu.trainer import Trainer as JaxTrainer
 from tinyfaces_tpu_torch import main as cli
 from tinyfaces_tpu_torch.data import load_templates, native
 from tinyfaces_tpu_torch.data import wider_face as wf
-from tinyfaces_tpu_torch.models import resnet
+from tinyfaces_tpu_torch.models import detection
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
 from tinyfaces_tpu_torch.trainer import load_checkpoint
 from tinyfaces_tpu_torch.utils.convert import from_jax, from_reference_pth
@@ -61,6 +62,9 @@ def test_flags_match_jax(monkeypatch):
 
     ours, theirs = surface(_parser(cli, monkeypatch)), surface(_parser(jax_main, monkeypatch))
     assert ours.pop("device") == (("--device",), "cuda", None, None, None, argparse._StoreAction)
+    # the port's --arch adds ViTDet-B to the JAX package's two ResNets
+    arch = theirs.pop("arch")
+    assert ours.pop("arch") == (arch[0], arch[1], (*arch[2], "vitdet_b"), *arch[3:])
     assert ours == theirs
     argv = ["t.txt", "v.txt", "--epochs", "3", "--resume", "w/c", "--bf16", "--max-gt", "8"]
     assert vars(cli.arguments(argv)) == {**vars(jax_main.arguments(argv)), "device": "cuda"}
@@ -81,7 +85,8 @@ def _run(tmp_path, monkeypatch, name, argv, dataset=None):
     run_dir = tmp_path / name
     run_dir.mkdir()
     monkeypatch.chdir(run_dir)
-    monkeypatch.setitem(resnet.ARCH_STAGES, "resnet50", (1, 1, 1))
+    monkeypatch.setitem(detection.ARCHS, "resnet50", dataclasses.replace(detection.ARCHS["resnet50"],
+                                                                         stages=(1, 1, 1)))
     return cli.run(cli.arguments(argv), dataset), run_dir
 
 
@@ -205,6 +210,36 @@ def test_fp32_turns_tf32_off(tree, tmp_path, monkeypatch, bf16):
     _run(tmp_path, monkeypatch, "debug", _argv(tree, "--debug", *(["--bf16"] if bf16 else [])))
     assert torch.backends.cuda.matmul.allow_tf32 is bf16
     assert torch.backends.cudnn.allow_tf32 is bf16
+
+
+def test_vitdet_arch_builds_its_model_crop_and_geometry(tree, tmp_path, monkeypatch):
+    """`--arch vitdet_b --bf16`: the ViT detector in bfloat16, the 1024x1024
+    crop, the 128x128 heat map and the patch grid's receptive field, in the
+    Trainer and the dataset alike (the ViT cut to the tests' tiny one)."""
+    from tests.test_torch_vitdet import TINY
+    from tinyfaces_tpu_torch.models.vitdet import VitDetBackbone
+    from tinyfaces_tpu_torch.trainer import Trainer
+
+    monkeypatch.setitem(detection.ARCHS, "vitdet_b", dataclasses.replace(
+        detection.ARCHS["vitdet_b"], build=lambda stages, dtype, remat: VitDetBackbone(TINY, dtype),
+        channels=(TINY.pyramid_dim,) * 2))
+    seen = {}
+    monkeypatch.setattr(Trainer, "train_epoch",
+                        lambda self, dataset, epoch, log_every=1: seen.update(trainer=self, dataset=dataset))
+    argv = _argv(tree, "--arch", "vitdet_b", "--bf16", "--epochs", "1", "--save-every", "5")
+    args = cli.arguments(argv)
+    assert (args.arch, args.bf16) == ("vitdet_b", True)
+    tf32 = torch.backends.cudnn.allow_tf32
+    _run(tmp_path, monkeypatch, "vit", argv)
+    trainer, dataset = seen["trainer"], seen["dataset"]
+    model, cfg = trainer.model, trainer.cfg
+    assert model.arch == "vitdet_b" and model.dtype == torch.bfloat16
+    assert isinstance(model.model, VitDetBackbone) and model.model.dtype == torch.bfloat16
+    assert (cfg.input_size, cfg.heatmap_size, cfg.rf.stride, cfg.rf.offset, cfg.max_gt) == (
+        (1024, 1024), (128, 128), (8, 8), (3.5, 3.5), 8)
+    assert dataset.cfg == cfg
+    assert torch.backends.cudnn.allow_tf32 == tf32  # --bf16 leaves TF32 as it was
+    assert {g["name"] for g in trainer.opt.param_groups} == {"backbone", "score_res3", "score_res4"}
 
 
 def test_pretrained_backbone_from_a_reference_checkpoint(tmp_path):

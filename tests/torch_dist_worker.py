@@ -25,6 +25,7 @@ STORE is the process group's init address (a `file://` path). Modes:
 The CLIs' ResNet-50 stages are cut to (1, 1, 1).
 """
 
+import dataclasses
 import hashlib
 import os
 import signal
@@ -38,7 +39,7 @@ import torch  # noqa: E402
 
 from tinyfaces_tpu_torch.config import DetectorConfig, TrainConfig  # noqa: E402
 from tinyfaces_tpu_torch.data import load_templates  # noqa: E402
-from tinyfaces_tpu_torch.models import resnet  # noqa: E402
+from tinyfaces_tpu_torch.models import detection, resnet  # noqa: E402
 from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model  # noqa: E402
 from tinyfaces_tpu_torch.parallel import distributed  # noqa: E402
 from tinyfaces_tpu_torch.trainer import (Trainer, load_checkpoint, make_lr_schedule,  # noqa: E402
@@ -181,7 +182,7 @@ def mode_eval(argv: list) -> None:
 def main() -> None:
     mode, store, world, rank, workdir, *rest = sys.argv[1:]
     torch.set_num_threads(1)
-    resnet.ARCH_STAGES["resnet50"] = STAGES
+    detection.ARCHS["resnet50"] = dataclasses.replace(detection.ARCHS["resnet50"], stages=STAGES)
     if mode in ("step", "resume"):
         distributed.initialize(store, int(world), int(rank), device="cpu")
     if mode == "step":

@@ -87,8 +87,7 @@ from tinyfaces_tpu_torch.config import DetectorConfig, EvalConfig
 from tinyfaces_tpu_torch.data import jpegdct
 from tinyfaces_tpu_torch.data.targets import normalize_images, rgb_to_yuv420, yuv420_to_normalized
 from tinyfaces_tpu_torch.data.wider_face import MEAN_PIXEL
-from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
-from tinyfaces_tpu_torch.models.resnet import ARCH_STAGES
+from tinyfaces_tpu_torch.models.detection import ARCHS, TinyFacesDetector, init_model
 from tinyfaces_tpu_torch.ops.decode import decode_scores, valid_template_mask
 from tinyfaces_tpu_torch.ops.jpeg import dct4_batch_to_normalized, dct_batch_to_normalized
 from tinyfaces_tpu_torch.ops.nms import batched_nms_padded
@@ -136,6 +135,16 @@ def pyramid_level_sizes_np(hs, ws, factor: float) -> np.ndarray:
     return np.stack([th, tw], axis=-1).astype(np.int32)
 
 
+def refuse_arch(arch: str) -> None:
+    """The pyramid (PyramidDetector, the folded stem, the per-scale template
+    pruning) is built for the ResNet backbones alone: any other raises."""
+    if arch not in ARCHS or ARCHS[arch].stages is None:
+        resnets = tuple(a for a, spec in ARCHS.items() if spec.stages is not None)
+        raise ValueError(f"the eval pyramid supports the ResNet backbones {resnets} only: "
+                         f"{arch!r} has no pyramid support (its detection pyramid, folded stem "
+                         f"and template pruning are not ported); train it with main.py --arch {arch}")
+
+
 def get_model(
     checkpoint: Optional[str | Path] = None,
     num_templates: int = 25,
@@ -146,9 +155,10 @@ def get_model(
 ) -> TinyFacesDetector:
     """The detector in eval mode on `device`, with weights from
     `checkpoint` or, without one, seeded fresh weights (generator seed 0).
-    `arch` selects the backbone ("resnet101" | "resnet50")."""
-    model = TinyFacesDetector(num_templates=num_templates, stage_sizes=ARCH_STAGES[arch],
-                              dtype=dtype)
+    `arch` selects the backbone ("resnet101" | "resnet50"); the pyramid
+    runs no other."""
+    refuse_arch(arch)
+    model = TinyFacesDetector(num_templates=num_templates, arch=arch, dtype=dtype)
     init_model(model, torch.Generator().manual_seed(0))
     if checkpoint:
         model.load_state_dict(load_weights(checkpoint))
@@ -343,6 +353,7 @@ class PyramidDetector:
         if transfer not in TRANSFERS:
             raise ValueError(f"unknown transfer mode {transfer!r}; use one of {TRANSFERS}")
         check_shard(shard)
+        refuse_arch(getattr(model, "arch", "resnet101"))
         devices = [torch.device(d) for d in
                    ([device] if isinstance(device, (str, torch.device)) else device)]
         if len({d.type for d in devices}) != 1:

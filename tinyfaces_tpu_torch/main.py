@@ -37,6 +37,11 @@ rank at the same epoch boundary, each rank waits for the others before it
 exits, only rank 0 writes checkpoints and the JSONL, and every rank prints
 its kernel launches.
 
+`--arch vitdet_b` trains ViTDet-B (models/vitdet.py) under the same head:
+1024x1024 crops, a 128x128 heat map, its patch grid's receptive-field
+geometry (models/detection.ARCHS); with `--bf16` its activations run in
+bfloat16 over float32 parameters.
+
 Nothing falls back to the CPU: without a GPU, `--device cpu` must be given.
 """
 
@@ -49,10 +54,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tinyfaces_tpu_torch.config import DetectorConfig, TrainConfig
+from tinyfaces_tpu_torch.config import DetectorConfig, TrainConfig  # noqa: F401 (callers build datasets with it)
 from tinyfaces_tpu_torch.data import get_dataloader
-from tinyfaces_tpu_torch.models.detection import TinyFacesDetector, init_model
-from tinyfaces_tpu_torch.models.resnet import ARCH_STAGES
+from tinyfaces_tpu_torch.models.detection import ARCHS, TinyFacesDetector, detector_config, init_model
 from tinyfaces_tpu_torch.parallel import distributed
 from tinyfaces_tpu_torch.parallel.distributed import GracefulStop
 from tinyfaces_tpu_torch.trainer import (Trainer, load_checkpoint, save_checkpoint,
@@ -85,8 +89,9 @@ def arguments(argv=None):
     parser.add_argument("--pretrained-backbone", default="",
                         help="npz/pth with converted ImageNet ResNet-101 weights")
     parser.add_argument("--arch", default="resnet101",
-                        choices=("resnet101", "resnet50"),
-                        help="backbone (reference model.py:13 base_model knob)")
+                        choices=tuple(ARCHS),
+                        help="backbone (reference model.py:13 base_model knob); vitdet_b is "
+                             "ViTDet-B at its 1024x1024 input, a 128x128 heat map")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 activations (fp32 params)")
     parser.add_argument("--profile-dir", default="",
@@ -167,7 +172,7 @@ def run(args, dataset=None, backend: str | None = None) -> Trainer | None:
     if not args.bf16:  # fp32 means fp32: no TF32 in matmuls or convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    cfg = DetectorConfig(num_templates=NUM_TEMPLATES)
+    cfg = detector_config(args.arch, num_templates=NUM_TEMPLATES)
     if args.max_gt:
         cfg = dataclasses.replace(cfg, max_gt=args.max_gt)
     tc = TrainConfig(lr=args.lr, momentum=args.momentum, weight_decay=args.weight_decay,
@@ -188,7 +193,7 @@ def run(args, dataset=None, backend: str | None = None) -> Trainer | None:
         distributed.barrier_at_exit("debug_done")
         return None
 
-    model = TinyFacesDetector(num_templates=NUM_TEMPLATES, stage_sizes=ARCH_STAGES[args.arch],
+    model = TinyFacesDetector(num_templates=NUM_TEMPLATES, arch=args.arch,
                               dtype=torch.bfloat16 if args.bf16 else None)
     init_model(model, torch.Generator().manual_seed(args.seed))
     if args.pretrained_backbone:

@@ -54,6 +54,9 @@ captured route), and a capture or a later step reuses the plan it cached.
 `step_counts["tuned"]` counts those steps, one per batch shape since the
 last `setup`/`restore`.
 
+A ViT backbone's `epoch_end` record also holds its attention counters
+(`attention_stats`: calls by kind and backend, tokens and padding tokens).
+
 A step's spans (utils/profiling.py), when they record: `train.step`
 (`TrainSteps.step`, attributes `step`, `path`: `eager`, `capture` or
 `replay`, and `tuned`: 1 where the step ran the timed search) around its
@@ -589,6 +592,7 @@ class Trainer:
         timer = StepTimer(warmup=1)
         n_batches = len(loader)
         replayed, tuned, tuned_s = self.step_counts["replayed"], self.step_counts["tuned"], self.tuned_s
+        attn_calls = graphs.launch_counts("sdpa.")
         # Loss scalars are fetched lazily: the host blocks on the device only
         # at logging points.
         pending: list = []
@@ -659,5 +663,18 @@ class Trainer:
                 replayed_steps=self.step_counts["replayed"] - replayed,
                 tuned_steps=self.step_counts["tuned"] - tuned,
                 tuned_s=self.tuned_s - tuned_s,
+                **self.attention_stats(attn_calls),
             )
         return timer
+
+    def attention_stats(self, since: Optional[dict] = None) -> dict:
+        """A ViT backbone's attention counters (models/vitdet.py): its
+        attention calls by kind and backend since the `graphs.launch_counts
+        ("sdpa.")` reading `since` (replays included), and its last forward's
+        `attn_tokens` and `attn_pad_tokens`; nothing for a ResNet."""
+        tokens = getattr(self.model.model, "tokens", None)
+        if tokens is None:
+            return {}
+        since = since or {}
+        calls = {k: n - since.get(k, 0) for k, n in graphs.launch_counts("sdpa.").items()}
+        return {"attn_calls": calls, **tokens}

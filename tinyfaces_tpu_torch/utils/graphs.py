@@ -21,11 +21,18 @@ _lock = threading.Lock()
 _capturing = threading.local()  # .tally: the Captured this thread captures
 
 
+def _stream_capturing() -> bool:
+    try:
+        return torch.cuda.is_current_stream_capturing()
+    except RuntimeError:  # a CPU build of torch has no streams to capture
+        return False
+
+
 def count_launch(kernel: str) -> None:
     """One launch of `kernel` on the current stream: counted now, or, in a
     capture, into the capturing graph's tally (a capture that no
     `Captured` makes counts nowhere: nothing replays it through here)."""
-    if torch.cuda.is_current_stream_capturing():
+    if _stream_capturing():
         tally = getattr(_capturing, "tally", None)
         if tally is not None:
             tally[kernel] += 1
@@ -37,6 +44,13 @@ def count_launch(kernel: str) -> None:
 def launches(kernel: str) -> int:
     """Launches of `kernel` run in this process, replays included."""
     return _launches[kernel]
+
+
+def launch_counts(prefix: str) -> dict:
+    """Launches run in this process, replays included, of every kernel
+    whose name starts with `prefix` ("sdpa." for the attention calls)."""
+    with _lock:
+        return {k: n for k, n in sorted(_launches.items()) if k.startswith(prefix)}
 
 
 def _empty_like(inputs, device: torch.device):
